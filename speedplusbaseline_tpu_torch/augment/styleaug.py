@@ -1,0 +1,79 @@
+"""Style augmentation (counterpart of ``speedplusbaseline_tpu/augment/
+styleaug.py``; reference styleAugmentor.py).
+
+A style embedding z ~ N(mean_pbn, cov_pbn) is sampled through the SVD factor
+A = U S^1/2 of the covariance, interpolated with the SPEED+ mean embedding
+(alpha*z + (1-alpha)*base) and fed with the batch to the frozen Ghiasi
+generator under ``torch.no_grad()`` (the reference's ``.detach()``).
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..convert import flax_to_state_dict, read_flax_msgpack
+from ..models.ghiasi import EMBED_DIM, Ghiasi
+
+
+def load_style_stats(assets_dir: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(A, mean, base) for the embedding sampler (styleAugmentor.py:38-41)."""
+    mean = np.load(os.path.join(assets_dir, "style_embedding_pbn_mean.npy"))
+    cov = np.load(os.path.join(assets_dir, "style_embedding_pbn_cov.npy"))
+    base = np.load(os.path.join(assets_dir, "style_embedding_speedplus_mean.npy"))
+    u, s, _ = np.linalg.svd(cov)
+    A = u @ np.diag(np.sqrt(s))
+    return (A.astype(np.float32), mean.reshape(-1).astype(np.float32),
+            base.reshape(-1).astype(np.float32))
+
+
+def random_style_stats(seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Random stand-in stats for tests / when assets are unavailable."""
+    rs = np.random.RandomState(seed)
+    A = (rs.randn(EMBED_DIM, EMBED_DIM) * 0.05).astype(np.float32)
+    mean = rs.randn(EMBED_DIM).astype(np.float32) * 0.1
+    base = rs.randn(EMBED_DIM).astype(np.float32) * 0.1
+    return A, mean, base
+
+
+def load_ghiasi_params(path: str) -> dict:
+    """State dict of the port's ``Ghiasi`` from a flax msgpack checkpoint
+    (e.g. ``assets/ghiasi_params.msgpack``)."""
+    return flax_to_state_dict(read_flax_msgpack(path))
+
+
+class StyleAugmentor:
+    """Frozen style randomizer applied to image batches on ``device``.
+
+    aug = StyleAugmentor(alpha, stats, dtype, device)
+    aug.ghiasi.load_state_dict(load_ghiasi_params(path))   # or random init
+    out = aug(images, generator)
+    """
+
+    def __init__(self, alpha: float, stats, dtype: torch.dtype = torch.float32,
+                 device: torch.device = torch.device("cuda")):
+        self.alpha = float(alpha)
+        self.device = torch.device(device)
+        A, mean, base = stats
+        self.A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
+        self.mean = torch.as_tensor(mean, dtype=torch.float32, device=self.device)
+        self.base = torch.as_tensor(base, dtype=torch.float32, device=self.device)
+        self.ghiasi = Ghiasi(dtype).to(self.device).eval().requires_grad_(False)
+
+    def sample_embedding(self, n: int, generator: Optional[torch.Generator] = None,
+                         z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """z ~ N(mean, cov): randn @ A^T + mean (styleAugmentor.py:44-49).
+        Pass ``z`` (n, 100) to use given normal draws."""
+        if z is None:
+            z = torch.randn((n, EMBED_DIM), generator=generator, device=self.device)
+        return z @ self.A.T + self.mean
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Restyle (B, 3, H, W) in [0, 1]; returns the generator's dtype."""
+        emb = self.sample_embedding(x.shape[0], generator, z)
+        emb = self.alpha * emb + (1.0 - self.alpha) * self.base
+        return self.ghiasi(x, emb)

@@ -1,0 +1,118 @@
+"""Threaded prefetching loader feeding device-resident batches (the port's
+own counterpart of ``speedplusbaseline_tpu/data/loader.py``).
+
+* decode/crop runs in a thread pool (cv2 releases the GIL during decode and
+  resize);
+* each batch is stacked into contiguous numpy arrays, wrapped in pinned
+  host memory when the target is a GPU, and copied with ``non_blocking=True``
+  so the copy overlaps the device's work;
+* the shuffle is a per-epoch permutation from a (seed, epoch) Philox stream,
+  the JAX package's, so both give the same batches.
+
+Training batches only: a short last batch is dropped.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+
+def _stack(samples) -> Dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, device: torch.device,
+                 shuffle: bool = True, num_workers: int = 4, prefetch: int = 2,
+                 seed: int = 2021):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def index_order(self) -> np.ndarray:
+        n = len(self.dataset)
+        if not self.shuffle:
+            return np.arange(n)
+        rng = np.random.Generator(np.random.Philox(key=np.uint64(
+            [(self.seed << 20) + self.epoch, 0x5EEDF00D])))
+        return rng.permutation(n)
+
+    def host_batches(self) -> Iterator[Dict[str, torch.Tensor]]:
+        """Batches as host tensors (pinned when the target is a GPU), made
+        ahead by a producer thread."""
+        order = self.index_order()
+        nb = len(self)
+        epoch = self.epoch
+        pin = self.device.type == "cuda"
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        error: list = []
+
+        def produce():
+            # Always enqueue the sentinel, or the consumer blocks forever; an
+            # error re-raises on the consumer side.
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in range(nb):
+                        if stop.is_set():
+                            return
+                        idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                        samples = list(pool.map(
+                            lambda i: self.dataset.__getitem__(int(i), epoch=epoch),
+                            idxs))
+                        batch = {k: torch.from_numpy(v)
+                                 for k, v in _stack(samples).items()}
+                        if pin:
+                            batch = {k: v.pin_memory() for k, v in batch.items()}
+                        out_q.put(batch)
+            except BaseException as e:  # noqa: BLE001 -- re-raised by the consumer
+                error.append(e)
+            finally:
+                out_q.put(None)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            while True:
+                batch = out_q.get()
+                if batch is None:
+                    break
+                yield batch
+            if error:
+                raise error[0]
+        finally:
+            stop.set()
+            while thread.is_alive():  # drain so the producer can exit
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    thread.join(timeout=0.1)
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        for batch in self.host_batches():
+            yield {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+
+
+def make_dataloader(cfg, device: torch.device) -> DataLoader:
+    """Training loader (reference build.py:45-66): cfg.batch_size, shuffled."""
+    from .csv_dataset import KRNDataset
+
+    return DataLoader(KRNDataset(cfg, is_train=True, is_source=True), cfg.batch_size,
+                      device, shuffle=True, num_workers=cfg.num_workers,
+                      seed=cfg.seed)

@@ -1,0 +1,60 @@
+"""Optimizers, clipping and the StepLR schedule (counterpart of
+``speedplusbaseline_tpu/engine/optim.py``; reference src/nets/build.py:60-78,
+train.py:107-109).
+
+The four optimizers map to ``torch.optim`` exactly as the optax chains of
+the JAX package do (cfg.momentum doubles as beta1 / the RMS decay):
+
+  sgd     -> SGD(momentum=m, weight_decay=wd): L2 added into the grad, buffer
+             b = m*b + g (optax ``trace``)
+  rmsprop -> RMSprop(alpha=m, eps=1e-8, weight_decay=wd): eps outside the
+             sqrt (optax ``scale_by_rms(eps_in_sqrt=False)``)
+  adam    -> Adam(betas=(m, 0.999), eps=1e-8, weight_decay=wd): L2 into grad
+  adamw   -> AdamW(betas=(m, 0.999), eps=1e-8, weight_decay=wd): decoupled
+             decay, p -= lr*(adam_update + wd*p)
+
+KRN clips by global norm 1.0 before the step (trainer.py:97).
+``clip_grad_norm_`` scales by max_norm / (norm + 1e-6); optax by
+max_norm / norm. The relative difference is 1e-6 / norm, below f32 noise at
+any norm this clip acts on.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+KRN_CLIP_NORM = 1.0
+
+
+def step_lr_schedule(base_lr: float, decay_alpha: float, decay_step: int,
+                     steps_per_epoch: int):
+    """torch StepLR(step_size=decay_step, gamma=decay_alpha) as a function
+    of the optimizer step count."""
+
+    def schedule(count: int) -> float:
+        epoch = count // max(steps_per_epoch, 1)
+        return base_lr * (decay_alpha ** (epoch // max(decay_step, 1)))
+
+    return schedule
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def build_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    wd, m, lr = cfg.weight_decay, cfg.momentum, cfg.lr
+    params = list(params)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr, momentum=m, weight_decay=wd)
+    if cfg.optimizer == "rmsprop":
+        return torch.optim.RMSprop(params, lr=lr, alpha=m, eps=1e-8, weight_decay=wd)
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(m, 0.999), eps=1e-8,
+                                weight_decay=wd)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(m, 0.999), eps=1e-8,
+                                 weight_decay=wd)
+    raise ValueError(f"unknown optimizer: {cfg.optimizer}")

@@ -1,0 +1,111 @@
+"""Shared building blocks (counterpart of ``speedplusbaseline_tpu/models/
+layers.py``): NCHW tensors in channels_last memory, torch-style symmetric
+padding ``k // 2`` (not SAME), flax BatchNorm semantics.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d with flax's running-statistics update.
+
+    Flax updates ``var`` with the BIASED batch variance; ``nn.BatchNorm2d``
+    uses the unbiased one (n / (n - 1) larger; at n = B*H*W of 8 the two
+    differ by 14%). The forward is ``F.batch_norm``; after it, the running
+    variance is corrected to the biased update from the C-length vectors
+    alone, with no second pass over the activation. Flax ``momentum=0.9`` is
+    torch ``momentum=0.1``.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        m = self.momentum
+        n = x.numel() // x.shape[1]
+        # F.batch_norm updates a copy (its backward keeps the tensor it was
+        # given, so the buffer itself must not change under it):
+        # new = (1-m) old + m * unbiased; swap unbiased for biased.
+        new_var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, new_var, self.weight,
+                         self.bias, True, m, self.eps)
+        with torch.no_grad():
+            old = self.running_var
+            self.running_var.copy_((1.0 - m) * old
+                                   + (new_var - (1.0 - m) * old) * ((n - 1) / n))
+        return y
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + BatchNorm + optional activation (reference
+    park2019.py:43-56)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, groups: int = 1,
+                 act: Optional[Callable] = F.relu):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
+                              padding=kernel_size // 2, groups=groups,
+                              bias=False)
+        self.bn = BatchNorm(out_ch)
+        self.act = act
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return self.act(x) if self.act is not None else x
+
+
+class ConvDw(nn.Module):
+    """Depthwise-separable conv block (reference park2019.py:32-58):
+    3x3 depthwise + BN + ReLU, then 1x1 pointwise + BN + ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+        super().__init__()
+        self.dw = ConvBN(in_ch, in_ch, 3, stride, groups=in_ch)
+        self.pw = ConvBN(in_ch, out_ch, 1, 1)
+
+    def forward(self, x):
+        return self.pw(self.dw(x))
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NCHW space-to-depth with the reference's reorg channel order
+    (park2019.py:74-79): out channel = (s_h*block + s_w)*C + c.
+    ``F.pixel_unshuffle`` orders c*block^2 + s_h*block + s_w instead."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // block, block, w // block, block)
+    x = x.permute(0, 3, 5, 1, 2, 4)  # (b, s_h, s_w, c, h', w')
+    return x.reshape(b, block * block * c, h // block, w // block)
+
+
+def _leaky02(v):
+    return F.leaky_relu(v, 0.2)
+
+
+class RouterV2(nn.Module):
+    """Skip-connection router (reference park2019.py:60-80): 1x1 conv + BN +
+    LeakyReLU(0.2) on the high-res tap, space-to-depth reorg, concat with the
+    low-res stream (reorg first)."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 2):
+        super().__init__()
+        self.stride = stride
+        self.conv = ConvBN(in_ch, features, 1, 1, act=_leaky02)
+
+    def forward(self, x1, x2):
+        x2 = space_to_depth(self.conv(x2), self.stride)
+        return torch.cat([x2, x1], dim=1)

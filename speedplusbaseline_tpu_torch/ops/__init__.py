@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the Ghiasi generator, each beside its plain
+PyTorch version. Importing this package loads no CUDA and builds nothing:
+a kernel is built at its first launch (see ``_build``)."""
+from .instancenorm import instance_norm_film, instance_norm_film_plain
+from .resblock import ghiasi_resblock, ghiasi_resblock_plain
+
+__all__ = ["instance_norm_film", "instance_norm_film_plain", "ghiasi_resblock",
+           "ghiasi_resblock_plain"]

@@ -1,0 +1,102 @@
+"""Ghiasi residual block, forward only, on (B, H, W, C) tensors.
+
+Counterpart of ``speedplusbaseline_tpu/ops/pallas_resblock.py`` (the TPU
+kernel, which ``csrc/resblock.cu`` replaces) and of the plain block in
+``models/ghiasi.py::ResidualBlock``:
+
+    y = conv3x3(reflect_pad1(x), W1) + b1;  y = relu(FiLM1(IN(y)))
+    y = conv3x3(reflect_pad1(y), W2) + b2;  y = FiLM2(IN(y))
+    out = x + y
+
+computed in f32 from x's dtype and cast back, as the Pallas kernel does.
+
+* ``ghiasi_resblock_plain``: ``F.pad(reflect)`` + ``F.conv2d`` + the plain
+  instance norm. The CPU tests use it; ``chip_smoke.py`` holds the kernel to
+  it.
+* ``ghiasi_resblock``: the wrapper. A CPU tensor takes the plain version; a
+  CUDA tensor launches the kernel chain or raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .instancenorm import _DTYPES, check_f32, check_x, instance_norm_film_plain
+
+
+def _conv3x3_reflect(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    x = F.pad(x_nhwc.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    y = F.conv2d(x, w_hwio.permute(3, 2, 0, 1).float(), b.float())
+    return y.permute(0, 2, 3, 1)
+
+
+def ghiasi_resblock_plain(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2):
+    """x: (B, H, W, C); w1/w2: (3, 3, C, C) HWIO; b1/b2: (C,);
+    gamma/beta: (B, C). Returns (B, H, W, C) in x's dtype."""
+    xf = x.float()
+    y = _conv3x3_reflect(xf, w1, b1)
+    y = instance_norm_film_plain(y, gamma1, beta1, relu=True)
+    y = _conv3x3_reflect(y, w2, b2)
+    y = instance_norm_film_plain(y, gamma2, beta2)
+    return (xf + y).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_pixels(lib) -> int:
+    """Pixels per conv tile (``TP`` in csrc/resblock.cu), read once."""
+    return lib.gk_resblock_tile_pixels()
+
+
+def ghiasi_resblock(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2):
+    """Fused residual block (see module docstring); same arguments as
+    ``ghiasi_resblock_plain``. On CUDA every argument but x must be a
+    contiguous float32 tensor; x is float32 or bfloat16, contiguous."""
+    if x.device.type == "cpu":
+        return ghiasi_resblock_plain(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2)
+    check_x(x, "ghiasi_resblock")
+    B, H, W, C = x.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"ghiasi_resblock: reflect pad needs H, W >= 2, got {H}x{W}")
+    for name, t in (("w1", w1), ("w2", w2)):
+        check_f32(t, name, (3, 3, C, C), x.device)
+    for name, t in (("b1", b1), ("b2", b2)):
+        check_f32(t, name, (C,), x.device)
+    for name, t in (("gamma1", gamma1), ("beta1", beta1), ("gamma2", gamma2),
+                    ("beta2", beta2)):
+        check_f32(t, name, (B, C), x.device)
+
+    lib = _build.load("resblock")
+    ntiles = -(-(H * W) // _tile_pixels(lib))
+    out = torch.empty_like(x)
+    y1 = torch.empty((B, H * W, C), device=x.device, dtype=torch.float32)
+    y2 = torch.empty_like(y1)
+    part = torch.empty((B, ntiles, C, 2), device=x.device, dtype=torch.float32)
+    scale = torch.empty((B, C), device=x.device, dtype=torch.float32)
+    shift = torch.empty_like(scale)
+    err = lib.gk_resblock(
+        x.data_ptr(), out.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), gamma1.data_ptr(), beta1.data_ptr(),
+        gamma2.data_ptr(), beta2.data_ptr(), y1.data_ptr(), y2.data_ptr(),
+        part.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        B, H, W, C, _DTYPES[x.dtype], 1e-5, _build.stream_ptr(x.device))
+    _build.check(err, "ghiasi_resblock")
+    _build.launches["ghiasi_resblock"] += 1
+    return out
+
+
+def bytes_moved(shape, dtype: torch.dtype) -> int:
+    """Compulsory traffic of one call: read x, write out, read the weights
+    and the FiLM vectors once."""
+    B, H, W, C = shape
+    elem = torch.finfo(dtype).bits // 8
+    return 2 * B * H * W * C * elem + 4 * (2 * 9 * C * C + 2 * C + 4 * B * C)
+
+
+def flops(shape) -> int:
+    """Two 3x3 C->C convs per sample: 2 * (2 * 9 * C^2 * H * W) * B."""
+    B, H, W, C = shape
+    return 2 * 2 * 9 * C * C * H * W * B

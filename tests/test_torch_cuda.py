@@ -1,0 +1,75 @@
+"""The hand-written CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: each test skips on a machine without a GPU (the CPU tests
+reach only the plain versions). On the card, ``python -m pytest
+tests/test_torch_cuda.py`` builds the kernels with nvcc and runs these; the
+module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 (B1, 1152-term
+sums in another order); bf16 1e-2 + 2^-6 |ref| (one or two bf16 ulps where
+the f32 results round differently).
+"""
+import pytest
+import torch
+
+from speedplusbaseline_tpu_torch.ops import _build
+from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
+                                                          instance_norm_film_plain)
+from speedplusbaseline_tpu_torch.ops.resblock import ghiasi_resblock, ghiasi_resblock_plain
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check(got, ref, tol):
+    atol, rtol = tol
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (3, 9, 7, 3), (2, 57, 41, 128)])
+def test_instance_norm_film_kernel(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(shape, device=dev, generator=g) * 0.5 + 5.0).to(dtype)
+    gam = torch.randn(shape[0], shape[3], device=dev, generator=g)
+    bet = torch.randn(shape[0], shape[3], device=dev, generator=g)
+    before = _build.launches["instance_norm_film"]
+    for args, relu in (((None, None), False), ((gam, bet), True), ((gam, bet), False)):
+        _check(instance_norm_film(x, *args, relu=relu),
+               instance_norm_film_plain(x, *args, relu=relu), TOL[dtype])
+    assert _build.launches["instance_norm_film"] == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 128), (2, 9, 9, 128), (1, 13, 6, 40)])
+def test_resblock_kernel(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(1)
+    C = shape[3]
+    args = ([torch.randn(3, 3, C, C, device=dev, generator=g) / (9 * C) ** 0.5,
+             torch.randn(C, device=dev, generator=g) * 0.1,
+             torch.randn(3, 3, C, C, device=dev, generator=g) / (9 * C) ** 0.5,
+             torch.randn(C, device=dev, generator=g) * 0.1]
+            + [torch.randn(shape[0], C, device=dev, generator=g) for _ in range(4)])
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    tol = (5e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    _check(ghiasi_resblock(x, *args), ghiasi_resblock_plain(x, *args), tol)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.randn(2, 8, 8, 16, device=dev)
+    with pytest.raises(ValueError):
+        instance_norm_film(x.permute(0, 2, 1, 3))  # not contiguous
+    with pytest.raises(ValueError):
+        instance_norm_film(x.half())
+    with pytest.raises(ValueError):
+        instance_norm_film(x, torch.ones(2, 16, device=dev, dtype=torch.bfloat16))

@@ -1,0 +1,55 @@
+"""The PyTorch port imports no JAX, and its train CLI refuses what it does
+not serve: a missing GPU without --no_cuda, and the flags of parts not yet
+ported."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from speedplusbaseline_tpu_torch import train
+from speedplusbaseline_tpu_torch.config import parse_cfg, resolve_device
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, pkgutil, sys
+import speedplusbaseline_tpu_torch as p
+mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "speedplusbaseline_tpu"))
+print(len(mods))
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+
+
+def test_train_raises_without_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        train.main(["--savedir", str(tmp_path / "s"), "--logdir", str(tmp_path / "l")])
+    assert resolve_device(parse_cfg(["--no_cuda"])).type == "cpu"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--test_epoch", "1"], ["--model_name", "spn"], ["--perform_dann"],
+    ["--num_devices", "2"], ["--profile_dir", "prof"], ["--use_native_loader"],
+    ["--cache_dir", "cache"],
+])
+def test_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError):
+        train.main(flags + ["--no_cuda", "--savedir", str(tmp_path / "s"),
+                            "--logdir", str(tmp_path / "l")])
