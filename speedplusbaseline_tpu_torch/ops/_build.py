@@ -35,8 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # {library: {entry point: argtypes}}, matching the extern "C" declarations.
 SIGNATURES = {
     "instancenorm": {"gk_instance_norm_film": [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
-    "resblock": {"gk_resblock": [_P] * 15 + [_I] * 5 + [_F, _P],
-                 "gk_resblock_tile_pixels": []},
+    "resblock": {"gk_resblock": [_P] * 16 + [_I] * 5 + [_F, _P],
+                 "gk_resblock_tile_pixels": [],
+                 "gk_resblock_wsplit_bytes": [_I],
+                 "gk_resblock_smem_bytes": [_I, _I]},
 }
 
 launches: Dict[str, int] = {"instance_norm_film": 0, "ghiasi_resblock": 0}

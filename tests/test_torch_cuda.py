@@ -3,9 +3,10 @@
 Marked ``cuda``: each test skips on a machine without a GPU (the CPU tests
 reach only the plain versions). On the card, ``python -m pytest
 tests/test_torch_cuda.py`` builds the kernels with nvcc and runs these; the
-module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 (B1, 1152-term
-sums in another order); bf16 1e-2 + 2^-6 |ref| (one or two bf16 ulps where
-the f32 results round differently).
+module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 + 1e-4 |ref| (B1,
+1152-term sums of split-bf16 tensor-core products in another order); bf16
+1e-2 + 2^-6 |ref| (one or two bf16 ulps where the f32 results round
+differently).
 """
 import pytest
 import torch
@@ -51,7 +52,8 @@ def test_instance_norm_film_kernel(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 128), (2, 9, 9, 128), (1, 13, 6, 40)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 128), (2, 9, 9, 128), (1, 13, 6, 40),
+                                   (48, 56, 56, 128), (3, 2, 5, 16), (1, 9, 9, 136)])
 def test_resblock_kernel(dev, dtype, shape):
     g = torch.Generator(device=dev).manual_seed(1)
     C = shape[3]
@@ -62,7 +64,23 @@ def test_resblock_kernel(dev, dtype, shape):
             + [torch.randn(shape[0], C, device=dev, generator=g) for _ in range(4)])
     x = torch.randn(shape, device=dev, generator=g).to(dtype)
     tol = (5e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    before = _build.launches["ghiasi_resblock"]
     _check(ghiasi_resblock(x, *args), ghiasi_resblock_plain(x, *args), tol)
+    assert _build.launches["ghiasi_resblock"] == before + 1
+
+
+@pytest.mark.parametrize("shape,match", [((1, 4, 400, 128), "shared memory"),
+                                         ((1, 8, 8, 12), "multiple of 8")])
+def test_resblock_rejects_what_the_kernel_does_not_take(dev, shape, match):
+    """Rows wider than one block's shared memory holds, and channels that are
+    no whole 16-byte groups, are refused with the limit named; there is no
+    fallback."""
+    B, C = shape[0], shape[3]
+    x = torch.zeros(shape, device=dev)
+    args = ([torch.zeros(3, 3, C, C, device=dev), torch.zeros(C, device=dev)] * 2
+            + [torch.zeros(B, C, device=dev) for _ in range(4)])
+    with pytest.raises(ValueError, match=match):
+        ghiasi_resblock(x, *args)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -5,7 +5,9 @@ B2 = instance_norm_film (ops/instancenorm.py), B1 = ghiasi_resblock
 (ops/resblock.py). Inputs come from numpy seeds; the JAX side runs at
 float32 matmul precision. Tolerances: 1e-5 absolute for B2 (one f32
 normalisation), 1e-4 for B1 (two 1152-term f32 conv sums in another order,
-each followed by a normalisation).
+each followed by a normalisation). B1's CUDA kernel takes its convs on bf16
+tensor cores through split-bf16 operands; ``test_b1_split_bf16_matches_pallas``
+emulates that arithmetic here and holds it to the Pallas kernel.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from speedplusbaseline_tpu_torch.models.ghiasi import ResidualBlock
 from speedplusbaseline_tpu_torch.ops import (ghiasi_resblock, ghiasi_resblock_plain,
                                              instance_norm_film,
                                              instance_norm_film_plain)
+from speedplusbaseline_tpu_torch.ops.resblock import _conv3x3_reflect
 
 torch.set_num_threads(1)
 
@@ -80,6 +83,56 @@ def test_b1_plain_matches_pallas():
         ref = np.asarray(ghiasi_resblock_pallas(*map(jnp.asarray, args), interpret=True))
     ours = ghiasi_resblock_plain(*map(_t, args)).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+def _split(t):
+    """f32 -> (hi, lo) bf16 values as f32: hi = bf16(t), lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _conv_split(a, w, b, a_is_bf16):
+    """The kernel's conv arithmetic: reflect pad 1, 3x3 conv of a (B, H, W, C)
+    by HWIO w as hi*hi + hi*lo + lo*hi bf16 products (lo*lo dropped; a bf16
+    operand has lo = 0 and takes two passes), summed in f32, + b."""
+    zero = torch.zeros_like(b)
+    w_hi, w_lo = _split(w)
+    a_hi, a_lo = (a, None) if a_is_bf16 else _split(a)
+    y = _conv3x3_reflect(a_hi, w_hi, b) + _conv3x3_reflect(a_hi, w_lo, zero)
+    if a_lo is not None:
+        y = y + _conv3x3_reflect(a_lo, w_hi, zero)
+    return y
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mean", [0.0, 5.0])
+def test_b1_split_bf16_matches_pallas(x_dtype, mean):
+    """The split-bf16 arithmetic of csrc/resblock.cu keeps B1's f32 function.
+
+    Emulated in plain torch: conv 1 takes x (split into hi/lo when f32, as it
+    is when bf16) and conv 2 the normalised f32 y1, split; both weights split;
+    the lo*lo term dropped; f32 sums. Held to the Pallas kernel at the card's
+    f32 tolerance for B1, 5e-4 + 1e-4 |ref|, not the 1e-4 of the f32 plain
+    version: each split operand keeps 16 significant bits, not 24, so every
+    product is off by up to ~2^-16 relative before the 1152-term sums. A bf16
+    x is compared before the final cast to bf16: the Pallas kernel is given
+    its values as f32 (it upcasts a bf16 x itself), so both sides are the f32
+    result. ``mean`` 5.0 with std 0.5 is the hard case: the IN of a mean 10x
+    the std.
+    """
+    rs = np.random.RandomState(4)
+    args = list(_block_inputs(rs, (2, 8, 8, 128)))
+    args[0] = (args[0] * (0.5 if mean else 1.0) + mean).astype(np.float32)
+    if x_dtype == "bfloat16":
+        args[0] = torch.from_numpy(args[0]).to(torch.bfloat16).float().numpy()
+    with jax.default_matmul_precision("float32"):
+        ref = np.asarray(ghiasi_resblock_pallas(*map(jnp.asarray, args), interpret=True))
+    x, w1, b1, w2, b2, g1, f1, g2, f2 = map(_t, args)
+    y = _conv_split(x, w1, b1, x_dtype == "bfloat16")
+    y = instance_norm_film_plain(y, g1, f1, relu=True)
+    y = _conv_split(y, w2, b2, False)
+    ours = (x + instance_norm_film_plain(y, g2, f2)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=5e-4, rtol=1e-4)
 
 
 def test_b1_odd_size_matches_jax_block():
