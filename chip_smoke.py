@@ -10,7 +10,9 @@ Phases, each printing its own lines:
                 cuobjdump counts the tensor-core (HGMMA) instructions of B1;
   3. kernels -- each kernel against its plain PyTorch version on the same
                 inputs (TF32 off), f32 and bf16, at the main path's shapes,
-                with times (CUDA events), bounds and library-call times; then
+                with times (CUDA events), bounds and library-call times; B2
+                on both of its paths, with the path, cut and time of each
+                site and the card's cluster occupancy; then
                 the whole Ghiasi generator on the card, in f32 and in bf16,
                 against the plain f32 version on the CPU;
   4. main    -- the styled KRN trainer (``train.main``) at 224^2, batch 48,
@@ -54,6 +56,9 @@ B1_CALLS_PER_STEP = 5
 # B1's tensor-core passes per call from bf16 x: conv 1 x*w_hi + x*w_lo, conv 2
 # a_hi*w_hi + a_hi*w_lo + a_lo*w_hi (split-bf16 operands, csrc/resblock.cu).
 B1_PASSES = 5
+# Clock cycles of the sleep kernel that holds the device while time_ms
+# enqueues its calls (about 6 ms at the H100's 1.755 GHz boost clock).
+HOLD_CYCLES = 10_000_000
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2.0 ** -6)}  # (atol, rtol)
 TOL_B1_F32 = (5e-4, 1e-4)  # K = 1152-term sums of split-bf16 products, in another order
 # The bf16 generator against the f32 one: bf16 activations through ten layers
@@ -85,13 +90,20 @@ def tensor_core_instructions(name: str) -> int:
     return out.stdout.count("HGMMA")
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def time_ms(fn, reps: int = 20, hold: bool = True) -> float:
+    """Device ms per call: CUDA events around ``reps`` calls after two warm-up
+    calls. With ``hold``, a sleep kernel holds the device while the host
+    enqueues the calls, so the events time the device's work and not the
+    host's enqueue rate, which paces a call of a few tens of microseconds
+    (without it: the method of the port's earlier PERF.md figures)."""
     import torch
 
     fn()
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -131,42 +143,73 @@ def phase_kernels(dev):
     dtypes = (torch.float32, torch.bfloat16)
     report = {}
 
-    # B2: every site shape plus an odd one; input mean is 10x its std.
+    # B2: every site shape, an odd one, and shapes of the two-pass path (no
+    # 16-byte split; a plane just past what 16 cluster blocks hold); input
+    # mean is 10x its std.
     print("phase kernels: B2 instance_norm_film vs instance_norm_film_plain", flush=True)
     err_b2 = 0.0
-    shapes = [s[1] for s in B2_SITES[:3]] + [B2_SITES[5][1], (3, 57, 41, 128)]
+    shapes = [s[1] for s in B2_SITES[:3]] + [B2_SITES[5][1], (3, 57, 41, 128), (3, 9, 7, 3),
+                                              (2, 237, 237, 32)]
+    paths = set()
     for shape in shapes:
         for dt in dtypes:
+            p = inf.plan_on_card(shape, dt, dev)
+            paths.add(p.path)
             x = (torch.randn(shape, device=dev, generator=g) * 0.5 + 5.0).to(dt)
             gam = torch.randn(shape[0], shape[3], device=dev, generator=g)
             bet = torch.randn(shape[0], shape[3], device=dev, generator=g)
             for film, relu in ((False, False), (True, True), (True, False)):
                 args = (gam, bet) if film else (None, None)
                 err_b2 = max(err_b2, compare(
-                    f"B2 {shape} {str(dt)[6:]} film={film} relu={relu}",
+                    f"B2 {shape} {str(dt)[6:]} {p.path} film={film} relu={relu}",
                     inf.instance_norm_film(x, *args, relu=relu),
                     inf.instance_norm_film_plain(x, *args, relu=relu),
                     TOL[str(dt)[6:]]))
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    if paths != {"cluster", "two_pass"}:
+        fail(f"B2 checks reached only the {paths} path(s)")
+    tot = {"ms": 0.0, "paced_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    sites, configs = [], set()
     for layer, shape, film, relu in B2_SITES:
+        p = inf.plan_on_card(shape, torch.bfloat16, dev)
         x = torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
         gam = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
         bet = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
         x_nchw = x.permute(0, 3, 1, 2)
+        calls = dict(inf.path_calls)
         ms = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu))
+        ran = {k: v - calls[k] for k, v in inf.path_calls.items() if v != calls[k]}
+        if list(ran) != [p.path]:
+            fail(f"B2 {layer}: planned the {p.path} path, ran {ran}")
+        paced = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu), hold=False)
         pms = time_ms(lambda: inf.instance_norm_film_plain(x, gam, bet, relu=relu))
         lms = time_ms(lambda: F.instance_norm(x_nchw, eps=1e-5))
         bound = max(inf.bytes_moved(shape, torch.bfloat16, film) / HBM_BYTES_PER_S,
                     inf.flops(shape) / F32_FLOPS) * 1e3
-        print(f"  B2 {layer} {shape} bf16 film={film} relu={relu}: kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, F.instance_norm {lms:.4f} ms, bound {bound:.4f} ms "
-              "(bytes)", flush=True)
-        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bound)):
+        cut = (f"K={p.k}, {p.block_bytes} B/block, {p.threads} threads" if p.path == "cluster"
+               else f"{p.nchunks} chunks of {p.rows_per_chunk} rows")
+        print(f"  B2 {layer} {shape} bf16 film={film} relu={relu}: {p.path} ({cut}): kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), {ms / bound:.2f}x bound; "
+              f"enqueue-paced {paced:.4f} ms; plain {pms:.4f} ms, F.instance_norm "
+              f"{lms:.4f} ms", flush=True)
+        sites.append({"layer": layer, "shape": list(shape), "path": p.path, "k": p.k,
+                      "block_bytes": p.block_bytes, "ms": ms, "bound_ms": bound,
+                      "x_bound": ms / bound, "paced_ms": paced})
+        if p.path == "cluster":
+            configs.add((p.k, p.threads, p.smem_bytes))
+        for k, v in (("ms", ms), ("paced_ms", paced), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bound)):
             tot[k] += v
+    for k, threads, smem in sorted(configs):
+        n = inf.max_active_clusters(dev.index or 0, torch.bfloat16, k, threads, smem)
+        print(f"  B2 cudaOccupancyMaxActiveClusters: {n} clusters of {k} blocks x {threads} "
+              f"threads x {smem} B shared memory (bf16)", flush=True)
+    print(f"  B2 per styled step: kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"({tot['bound_ms'] / tot['ms']:.0%} of bound); enqueue-paced {tot['paced_ms']:.4f} "
+          "ms", flush=True)
     report["instance_norm_film"] = {"max_abs_err": err_b2, "bound_by": "bytes",
                                     "bound_basis": "one read of x and one write of y at "
                                                    "the HBM rate",
-                                    "bound_ms_bf16_tensor_core": None, **tot}
+                                    "bound_ms_bf16_tensor_core": None, "sites": sites, **tot}
 
     print("phase kernels: B1 ghiasi_resblock vs ghiasi_resblock_plain", flush=True)
     err_b1 = 0.0
@@ -356,9 +399,12 @@ def main() -> None:
     print(f"phase build: {time.time() - t0:.1f} s, nvcc sm_90a, {_build.build_dir()}",
           flush=True)
     for name in _build.SOURCES:
+        entry = "?"
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:64]
+            elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+                print(f"  {name}: {entry}: {line.strip()}")
     hgmma = tensor_core_instructions("resblock")
     smem = _build.load("resblock").gk_resblock_smem_bytes(*B1_SHAPE[1:3])
     print(f"phase build: libresblock.so holds {hgmma} HGMMA instructions (cuobjdump -sass); "
@@ -387,7 +433,8 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "bound_basis": r["bound_basis"],
-                        "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"]})
+                        "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
+                        **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled step (B2: its six sites; B1: five calls), bf16; "
           "B1's bound_ms counts its split-bf16 passes, bound_ms_bf16_tensor_core one "
           "bf16 pass of its f32 work")

@@ -30,7 +30,7 @@
 //      plain bulk copy lands each tile ready to use (no tensor map).
 //   1. conv3x3_tc_kernel<T, false>: conv 1 + b1 -> y1 (f32 scratch) and one
 //      (mean, M2) partial per (b, 128-pixel tile, c).
-//   2. in_finalize_kernel: merges the partials of each (b, c) in order (Chan's
+//   2. gk::in_finalize_kernel: merges the partials of each (b, c) in order (Chan's
 //      update, common.cuh) into scale/shift with FiLM1 folded in.
 //   3. conv3x3_tc_kernel<float, true>: conv 2, applying relu(y1 * scale +
 //      shift) as it loads y1, so the normalised y1 never reaches device
@@ -118,43 +118,13 @@ __device__ __forceinline__ int reflect1(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// ---- mbarrier and bulk copy (helpers in common.cuh) -------------------------
 
-// ---- mbarrier and bulk copy -------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+using gk::bulk_load;
+using gk::mbar_expect_tx;
+using gk::mbar_init;
+using gk::mbar_try_wait;
+using gk::smem_u32;
 
 // One stage: the hi and lo B tiles of one (tap, chunk), adjacent in the image.
 __device__ __forceinline__ void load_stage(uint8_t* dst, const __nv_bfloat16* src,
@@ -517,18 +487,6 @@ __global__ void split_weights_kernel(const float* __restrict__ w1, const float* 
   }
 }
 
-__global__ void in_finalize_kernel(const float2* __restrict__ part, const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, float* __restrict__ scale,
-                                   float* __restrict__ shift, int HW, int C, int ntiles,
-                                   float eps) {
-  const int b = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const size_t bc = (size_t)b * C + c;
-  gk::finalize_channel(part + (size_t)b * ntiles * C, ntiles, TP, HW, C, c, gamma[bc], beta[bc],
-                       eps, &scale[bc], &shift[bc]);
-}
-
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
@@ -606,12 +564,14 @@ cudaError_t run(const void* xv, void* outv, const float* w1, const float* b1, co
   if ((err = launch_conv<T, false>(cgrid, halo_cap, s, x, nullptr, nullptr, wimg, b1, y1, part,
                                    H, W, C, ntiles)) != cudaSuccess)
     return err;
-  in_finalize_kernel<<<fgrid, FIN_THREADS, 0, s>>>(part, g1, be1, scale, shift, HW, C, ntiles, eps);
+  gk::in_finalize_kernel<<<fgrid, FIN_THREADS, 0, s>>>(part, g1, be1, scale, shift, HW, C, TP,
+                                                       ntiles, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_conv<float, true>(cgrid, halo_cap, s, y1, scale, shift, wimg + per_conv, b2,
                                       y2, part, H, W, C, ntiles)) != cudaSuccess)
     return err;
-  in_finalize_kernel<<<fgrid, FIN_THREADS, 0, s>>>(part, g2, be2, scale, shift, HW, C, ntiles, eps);
+  gk::in_finalize_kernel<<<fgrid, FIN_THREADS, 0, s>>>(part, g2, be2, scale, shift, HW, C, TP,
+                                                       ntiles, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t total = (size_t)B * HW * C;
   const size_t want = (total / 4 + 255) / 256;

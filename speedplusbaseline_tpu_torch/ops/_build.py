@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # {library: {entry point: argtypes}}, matching the extern "C" declarations.
 SIGNATURES = {
-    "instancenorm": {"gk_instance_norm_film": [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
+    "instancenorm": {"gk_in_cluster": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+                     "gk_in_two_pass": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+                     "gk_in_max_active_clusters": [_I] * 4},
     "resblock": {"gk_resblock": [_P] * 16 + [_I] * 5 + [_F, _P],
                  "gk_resblock_tile_pixels": [],
                  "gk_resblock_wsplit_bytes": [_I],

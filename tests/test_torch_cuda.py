@@ -13,7 +13,8 @@ import torch
 
 from speedplusbaseline_tpu_torch.ops import _build
 from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
-                                                          instance_norm_film_plain)
+                                                          instance_norm_film_plain, path_calls,
+                                                          plan_on_card)
 from speedplusbaseline_tpu_torch.ops.resblock import ghiasi_resblock, ghiasi_resblock_plain
 
 pytestmark = pytest.mark.cuda
@@ -37,18 +38,34 @@ def _check(got, ref, tol):
     assert bool((err <= atol + rtol * ref.float().abs()).all()), err.max().item()
 
 
+# Shape -> the path plan() gives it in (f32, bf16): the main path's layer2
+# and layer10 shapes, an odd plane, no 16-byte split (3, 9, 7, 3), and the
+# last square 32-channel plane that 16 cluster blocks hold (236^2) and the
+# first they do not (237^2).
+B2_PATHS = {(2, 8, 8, 32): ("cluster", "cluster"), (3, 9, 7, 3): ("two_pass", "two_pass"),
+            (2, 57, 41, 128): ("cluster", "cluster"),
+            (48, 56, 56, 128): ("cluster", "cluster"),
+            (48, 224, 224, 3): ("cluster", "cluster"),
+            (2, 236, 236, 32): ("two_pass", "cluster"),
+            (2, 237, 237, 32): ("two_pass", "two_pass")}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (3, 9, 7, 3), (2, 57, 41, 128)])
+@pytest.mark.parametrize("shape", list(B2_PATHS))
 def test_instance_norm_film_kernel(dev, dtype, shape):
     g = torch.Generator(device=dev).manual_seed(0)
     x = (torch.randn(shape, device=dev, generator=g) * 0.5 + 5.0).to(dtype)
     gam = torch.randn(shape[0], shape[3], device=dev, generator=g)
     bet = torch.randn(shape[0], shape[3], device=dev, generator=g)
+    path = plan_on_card(shape, dtype, dev).path
+    assert path == B2_PATHS[shape][dtype == torch.bfloat16]
     before = _build.launches["instance_norm_film"]
+    on_path = path_calls[path]
     for args, relu in (((None, None), False), ((gam, bet), True), ((gam, bet), False)):
         _check(instance_norm_film(x, *args, relu=relu),
                instance_norm_film_plain(x, *args, relu=relu), TOL[dtype])
     assert _build.launches["instance_norm_film"] == before + 3
+    assert path_calls[path] == on_path + 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
