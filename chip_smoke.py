@@ -15,11 +15,20 @@ Phases, each printing its own lines:
                 site and the card's cluster occupancy; then
                 the whole Ghiasi generator on the card, in f32 and in bf16,
                 against the plain f32 version on the CPU;
-  4. main    -- the styled KRN trainer (``train.main``) at 224^2, batch 48,
-                AdamW, bf16, on a generated dataset of 1920x1200 JPEGs, with
-                the launch counters set to 0 just before and read just after;
-                then the styled and plain train steps timed on a resident
-                batch.
+  4. geometry -- batched EPnP (``keypoints_to_pose``) on the card at batches
+                of 48, 5 and 1: exact keypoints of random poses give
+                acc == 1 for every sample, 1-px-noisy ones agree with the
+                CPU, nothing is non-finite, and the call makes no host sync
+                (``torch.cuda.set_sync_debug_mode("error")``); its device
+                time per batch of 48;
+  5. main    -- the styled KRN trainer (``train.main``) at 224^2, batch 48,
+                AdamW, bf16, on a generated dataset of 1920x1200 JPEGs,
+                validating 100 test rows after its epoch (``--test_epoch
+                1``), then the test CLI (``test.main``) on the trainer's
+                ``model_best.pt``, each with the launch counters set to 0
+                just before it and read just after; the two evaluations must
+                agree; then the styled and plain train steps and the eval
+                step (forward, geometry) timed on a resident batch.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -57,14 +66,29 @@ B1_CALLS_PER_STEP = 5
 # a_hi*w_hi + a_hi*w_lo + a_lo*w_hi (split-bf16 operands, csrc/resblock.cu).
 B1_PASSES = 5
 # Clock cycles of the sleep kernel that holds the device while time_ms
-# enqueues its calls (about 6 ms at the H100's 1.755 GHz boost clock).
+# enqueues its calls (about 6 ms at the H100's 1.755 GHz boost clock), at
+# least; time_ms lengthens the hold to twice the host's enqueue time, counted
+# at the H100's highest clock (1.98 GHz), so the hold outlasts the enqueue.
 HOLD_CYCLES = 10_000_000
+MAX_CYCLES_PER_MS = 1.98e6
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2.0 ** -6)}  # (atol, rtol)
 TOL_B1_F32 = (5e-4, 1e-4)  # K = 1152-term sums of split-bf16 products, in another order
 # The bf16 generator against the f32 one: bf16 activations through ten layers
 # and a sigmoid in [0, 1]. 2^-6 is four bf16 ulps at the top of [0.5, 1), about
 # twice what phase "kernels" reads on an H100.
 TOL_GHIASI_BF16 = (2.0 ** -6, 0.0)
+# The SPEED+ camera (1920x1200, 17.6 mm / 5.86 um pixels, tests/conftest.py).
+FOCAL_PX = 0.0176 / 5.86e-6
+CAMERA = {"cameraMatrix": [[FOCAL_PX, 0.0, 960.0], [0.0, FOCAL_PX, 600.0], [0.0, 0.0, 1.0]],
+          "distCoeffs": [-0.22383016606510672, 0.51409797089106379, -0.00066499611998340662,
+                         -0.00021404771667484594, -0.13124227429077406]}
+# EPnP on the card against the CPU on 1-px-noisy keypoints: |dq|inf after sign
+# alignment, |dt|inf in m. Both run one f32 algorithm, rounding apart in
+# their sums; the refinements stop at one minimum. The bounds are about a
+# tenth of the pose error that the 1-px noise itself causes (phase geometry
+# prints both).
+TOL_EPNP_CARD = (1e-4, 1e-3)
+EVAL_ROWS = 100
 
 
 def fail(msg: str) -> None:
@@ -95,20 +119,38 @@ def time_ms(fn, reps: int = 20, hold: bool = True) -> float:
     calls. With ``hold``, a sleep kernel holds the device while the host
     enqueues the calls, so the events time the device's work and not the
     host's enqueue rate, which paces a call of a few tens of microseconds
-    (without it: the method of the port's earlier PERF.md figures)."""
+    (without it: the method of the port's earlier PERF.md figures). When
+    the hold ends before the host has enqueued every call (the host the card
+    shares slowed down), it measures again with a hold twice as long, up to
+    three times, then says so."""
     import torch
 
     fn()
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    cycles = max(HOLD_CYCLES, int(2 * enqueue_ms * reps * MAX_CYCLES_PER_MS))
+    for _ in range(3):
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        if hold:
+            torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if not hold or held.elapsed_time(start) >= host_ms:
+            break
+        cycles *= 2
+    else:
+        print(f"  time_ms: the device hold ({held.elapsed_time(start):.1f} ms) ended before "
+              f"the host enqueued {reps} calls ({host_ms:.1f} ms): host-paced", flush=True)
     return start.elapsed_time(end) / reps
 
 
@@ -282,12 +324,180 @@ def phase_ghiasi(dev):
         print(f"  {name}: mean_abs_err {mean_err:.3e}", flush=True)
 
 
+def random_poses(rs, n: int):
+    """Scalar-first unit quaternions and positions 3.5-9 m in front of the
+    camera (tests/conftest.py::random_pose), as float32 arrays."""
+    import numpy as np
+
+    q = rs.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q[q[:, 0] < 0] *= -1.0
+    t = np.stack([rs.uniform(-0.6, 0.6, n), rs.uniform(-0.4, 0.4, n),
+                  rs.uniform(3.5, 9.0, n)], 1)
+    return q.astype(np.float32), t.astype(np.float32)
+
+
+def project(q, t):
+    """Pixel keypoints (B, 11, 2) of the Tango points at poses (q, t), by the
+    port's projection on the CPU."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.geometry import project_keypoints
+    from speedplusbaseline_tpu_torch.io_utils import load_tango_3d_keypoints
+
+    return project_keypoints(torch.from_numpy(q), torch.from_numpy(t),
+                             torch.tensor(CAMERA["cameraMatrix"]),
+                             torch.tensor(CAMERA["distCoeffs"]),
+                             torch.from_numpy(load_tango_3d_keypoints())).mT.numpy()
+
+
+def eval_crop(uv):
+    """RoI-normalized keypoints (x, y) and crop boxes of the eval crop (the
+    tight box enlarged 1.2x, square, clamped to the frame:
+    data/transforms.py::crop_params)."""
+    import numpy as np
+
+    from speedplusbaseline_tpu_torch.data.transforms import crop_params
+
+    boxes = np.array([crop_params(None, [u[:, 0].min(), u[:, 0].max(), u[:, 1].min(),
+                                         u[:, 1].max()], 1920, 1200, False) for u in uv],
+                     np.float32)
+    x = (uv[..., 0] - boxes[:, 0:1]) / (boxes[:, 1:2] - boxes[:, 0:1])
+    y = (uv[..., 1] - boxes[:, 2:3]) / (boxes[:, 3:4] - boxes[:, 2:3])
+    return x.astype(np.float32), y.astype(np.float32), boxes
+
+
+def linalg_syncs(dev) -> None:
+    """Print which torch.linalg calls the geometry could use synchronize
+    with the host on this card (why geometry/_eigh.py exists)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn(48, 6, 6, device=dev, generator=g)
+    A = A @ A.mT + torch.eye(6, device=dev)
+    b = torch.randn(48, 6, 1, device=dev, generator=g)
+    calls = {"eigh": lambda: torch.linalg.eigh(A), "svd": lambda: torch.linalg.svd(A),
+             "solve": lambda: torch.linalg.solve(A, b), "inv": lambda: torch.linalg.inv(A),
+             "solve_ex": lambda: torch.linalg.solve_ex(A, b, check_errors=False),
+             "inv_ex": lambda: torch.linalg.inv_ex(A, check_errors=False)}
+    syncs = []
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError:
+            syncs.append(name)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"phase geometry: torch.linalg calls that sync with the host here: {syncs} "
+          f"(of {list(calls)})", flush=True)
+
+
+def phase_geometry(dev):
+    """keypoints_to_pose on the card at batches of 48, 5 and 1."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose
+    from speedplusbaseline_tpu_torch.io_utils import load_tango_3d_keypoints
+    from speedplusbaseline_tpu_torch.metrics import speed_score_batched
+
+    linalg_syncs(dev)
+
+    rs = np.random.RandomState(3)
+    consts = [torch.from_numpy(load_tango_3d_keypoints()), torch.tensor(CAMERA["cameraMatrix"]),
+              torch.tensor(CAMERA["distCoeffs"])]
+    consts_dev = [c.to(dev) for c in consts]
+    for n in (B, 5, 1):
+        q, t = random_poses(rs, n)
+        uv = project(q, t)
+        for noise in (0.0, 1.0):
+            x, y, box = (torch.from_numpy(a) for a in eval_crop(
+                uv + rs.randn(*uv.shape).astype(np.float32) * noise))
+            args = [a.to(dev) for a in (x, y, box)] + consts_dev
+            keypoints_to_pose(*args)  # makes the cached index tensors
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                q_pr, t_pr = keypoints_to_pose(*args)
+            except RuntimeError as e:
+                fail(f"geometry B={n}: keypoints_to_pose synchronized with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(q_pr).all() and torch.isfinite(t_pr).all()):
+                fail(f"geometry B={n} noise={noise}: non-finite pose")
+            m = speed_score_batched(t_pr, q_pr, torch.from_numpy(t).to(dev),
+                                    torch.from_numpy(q).to(dev))
+            err_q, err_t = m["err_q"].max().item(), m["err_t"].max().item()
+            if noise == 0.0:
+                if m["acc"].min().item() != 1.0:
+                    fail(f"geometry B={n}: exact keypoints missed the thresholds on "
+                         f"{int((m['acc'] < 1).sum())} samples (max eR {err_q:.4f} deg)")
+                print(f"phase geometry: B={n}, exact keypoints: acc 1 on every sample, max eR "
+                      f"{err_q:.4f} deg, max eT {err_t:.2e} m; no host sync", flush=True)
+                continue
+            q_cpu, t_cpu = keypoints_to_pose(x, y, box, *consts)
+            q_pr, t_pr = q_pr.cpu(), t_pr.cpu()
+            dq = (q_pr * torch.sign((q_pr * q_cpu).sum(1, keepdim=True)) - q_cpu).abs().max()
+            dt = (t_pr - t_cpu).abs().max()
+            print(f"phase geometry: B={n}, 1-px noise: card vs CPU |dq| {dq:.2e} (tol "
+                  f"{TOL_EPNP_CARD[0]:g}), |dt| {dt:.2e} m (tol {TOL_EPNP_CARD[1]:g}); "
+                  f"the noise's own max eR {err_q:.4f} deg, eT {err_t:.4f} m; no host sync",
+                  flush=True)
+            if dq > TOL_EPNP_CARD[0] or dt > TOL_EPNP_CARD[1]:
+                fail(f"geometry B={n}: the card disagrees with the CPU")
+            if n == B:
+                time_geometry(args)
+
+
+def time_geometry(args):
+    """keypoints_to_pose at batch 48: its device time, replayed from a CUDA
+    graph with the device held (one launch a call, so the hold covers the
+    enqueue), and its time as called eagerly (CUDA events, no hold: the
+    host enqueues thousands of small kernels a call, more than the launch
+    queue holds, so no hold can cover them and this is the host's rate)."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed
+    from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        keypoints_to_pose(*args)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    graphed = CudaGraphed(lambda *a: dict(zip("qt", keypoints_to_pose(*a))))
+    q_e, t_e = keypoints_to_pose(*args)
+    out = graphed(*args)
+    if not (torch.equal(out["q"], q_e) and torch.equal(out["t"], t_e)):
+        fail("geometry: the graph replay differs from the eager call")
+    ms = time_ms(lambda: graphed(*args), reps=20)
+    eager_ms = time_ms(lambda: keypoints_to_pose(*args), reps=5, hold=False)
+    print(f"phase geometry: keypoints_to_pose at batch {args[0].shape[0]}: {kernels} device "
+          f"kernels a call (torch.profiler); device time {ms:.3f} ms (CUDA graph replay, "
+          f"device held); called eagerly {eager_ms:.3f} ms (host-paced); the graph replay "
+          "equals the eager call bit for bit", flush=True)
+
+
 def write_dataset(root: str, n_rows: int, n_images: int = 48, seed: int = 0) -> None:
-    """KRN CSV + 1920x1200 JPEGs in the layout data/csv_dataset.py reads."""
+    """KRN CSVs + 1920x1200 JPEGs in the layout data/csv_dataset.py reads:
+    the train CSV of ``n_rows`` rows (random boxes and keypoints), the
+    ``lightbox.csv`` test CSV of EVAL_ROWS rows whose pose, box and
+    keypoints are the Tango points projected at random poses, and
+    camera.json."""
     import cv2
     import numpy as np
 
     rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "speedplus"), exist_ok=True)
+    with open(os.path.join(root, "speedplus", "camera.json"), "w") as f:
+        json.dump(CAMERA, f)
     base = os.path.join(root, "speedplus", "synthetic")
     os.makedirs(os.path.join(base, "images"), exist_ok=True)
     os.makedirs(os.path.join(base, "splits_krn"), exist_ok=True)
@@ -312,13 +522,24 @@ def write_dataset(root: str, n_rows: int, n_images: int = 48, seed: int = 0) -> 
                     ky.min(), ky.max()] + q.tolist() + t
                    + np.stack([kx, ky], 1).reshape(-1).tolist())
             f.write(", ".join(str(v) for v in row) + "\n")
+    q, t = random_poses(rs, EVAL_ROWS)
+    uv = project(q, t)
+    test_dir = os.path.join(root, "speedplus", "lightbox", "splits_krn")
+    os.makedirs(test_dir, exist_ok=True)
+    with open(os.path.join(test_dir, "lightbox.csv"), "w") as f:
+        for r in range(EVAL_ROWS):
+            u = uv[r]
+            row = ([f"synthetic/images/{names[r % n_images]}", u[:, 0].min(), u[:, 0].max(),
+                    u[:, 1].min(), u[:, 1].max()] + q[r].tolist() + t[r].tolist()
+                   + u.reshape(-1).tolist())
+            f.write(", ".join(str(v) for v in row) + "\n")
 
 
 def phase_main(dev, steps: int = 6):
     import numpy as np
     import torch
 
-    from speedplusbaseline_tpu_torch import train
+    from speedplusbaseline_tpu_torch import test, train
     from speedplusbaseline_tpu_torch.ops import _build
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -326,12 +547,13 @@ def phase_main(dev, steps: int = 6):
         write_dataset(tmp, steps * B)
         print(f"phase main: dataset of {steps * B} rows written in "
               f"{time.time() - t0:.1f} s", flush=True)
-        argv = ["--dataroot", tmp, "--savedir", os.path.join(tmp, "save"),
-                "--logdir", os.path.join(tmp, "log"), "--model_name", "krn",
-                "--input_shape", str(S), str(S), "--batch_size", str(B),
-                "--optimizer", "adamw", "--lr", "0.001", "--weight_decay", "0.01",
-                "--randomize_texture", "--use_fp16", "--texture_ratio", "1.0",
-                "--max_epochs", "1", "--start_over", "--num_workers", "8"]
+        common = ["--dataroot", tmp, "--model_name", "krn", "--input_shape", str(S), str(S),
+                  "--use_fp16", "--num_workers", "8", "--eval_batch_size", str(B)]
+        argv = common + ["--savedir", os.path.join(tmp, "save"),
+                         "--logdir", os.path.join(tmp, "log"), "--batch_size", str(B),
+                         "--optimizer", "adamw", "--lr", "0.001", "--weight_decay", "0.01",
+                         "--randomize_texture", "--texture_ratio", "1.0",
+                         "--max_epochs", "1", "--start_over", "--test_epoch", "1"]
         _build.reset_launches()
         t0 = time.time()
         records = train.main(argv)
@@ -357,7 +579,126 @@ def phase_main(dev, steps: int = 6):
         print(f"phase main: step ms after the first {[round(v, 2) for v in ms]}; median "
               f"{step_ms:.2f} ms = {B * 1000 / step_ms:.1f} img/s (from disk, "
               f"8 loader threads)", flush=True)
+        valid = check_eval(os.path.join(tmp, "log"), "trainer's validation")
+        with open(os.path.join(tmp, "log", "scalars.jsonl")) as f:
+            tags = {r["tag"]: r["value"] for r in map(json.loads, f)}
+        for name, tag in VALID_TAGS.items():
+            # the dumps are printed to 1e-5; the meters average f32 batch means
+            if tag not in tags or not math.isclose(tags[tag], valid[name].mean(), rel_tol=1e-6,
+                                                   abs_tol=1e-5):
+                fail(f"trainer's validation: scalar {tag!r} missing or not the dumps' mean")
+
+        # The test CLI on the trainer's weights: the same rows, the same numbers.
+        _build.reset_launches()
+        t0 = time.time()
+        meters = test.main(common + ["--savedir", os.path.join(tmp, "save"),
+                                     "--logdir", os.path.join(tmp, "log_test"),
+                                     "--resultfn", "results.txt", "--pretrained",
+                                     os.path.join(tmp, "save", "model_best.pt")])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        test_launches = dict(_build.launches)
+        tested = check_eval(os.path.join(tmp, "log_test"), "test CLI")
+        with open(os.path.join(tmp, "log_test", "results.txt")) as f:
+            results = f.read().splitlines()
+        if [r.split(":")[0] for r in results] != list(VALID_TAGS):
+            fail(f"results.txt holds {results}")
+        for name in VALID_TAGS:
+            if not math.isclose(meters[name].avg, tags[VALID_TAGS[name]], rel_tol=1e-4):
+                fail(f"test CLI {name} {meters[name].avg} != trainer's validation "
+                     f"{tags[VALID_TAGS[name]]}")
+        print(f"phase main: test CLI on model_best.pt: {results}; agrees with the trainer's "
+              f"validation (rel 1e-4; dumps max diff "
+              f"{max(np.abs(tested[k] - valid[k]).max() for k in DUMPS):.2e}); launches "
+              f"{test_launches}, wall {wall:.1f} s incl. set-up", flush=True)
     return launches
+
+
+# meter name -> the trainer's scalar tag; DUMPS: meter name -> per-row dump.
+VALID_TAGS = {"eR": "Valid/err_q [deg]", "eT": "Valid/err_t [m]",
+              "speed (raw)": "Valid/speed (raw) [-]", "speed (thr)": "Valid/speed (thr) [-]"}
+DUMPS = {"eR": "err_q.txt", "eT": "err_t.txt", "speed (raw)": "speed_raw.txt",
+         "speed (thr)": "speed_mod.txt"}
+
+
+def check_eval(logdir: str, what: str):
+    """The four dumps of one evaluation: EVAL_ROWS finite lines each.
+    Returns meter name -> the rows."""
+    import numpy as np
+
+    out = {}
+    for name, fname in DUMPS.items():
+        with open(os.path.join(logdir, fname)) as f:
+            rows = np.array([float(v) for v in f.read().split()])
+        if rows.shape != (EVAL_ROWS,) or not np.isfinite(rows).all():
+            fail(f"{what}: {fname} holds {rows.shape[0]} rows, "
+                 f"{int(np.isfinite(rows).sum())} finite; expected {EVAL_ROWS}")
+        out[name] = rows
+    print(f"phase main: {what}: {EVAL_ROWS} rows in each dump, all finite; means "
+          f"{ {k: round(float(v.mean()), 5) for k, v in out.items()} }", flush=True)
+    return out
+
+
+def phase_eval(dev):
+    """The KRN eval step on one device-resident batch of 48 at 224^2, bf16:
+    the forward and the geometry (pose + score) as device time, and the
+    whole step with its one readback on the host clock."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch.engine import images_to_float, make_krn_eval_step
+    from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed
+    from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose
+    from speedplusbaseline_tpu_torch.io_utils import load_tango_3d_keypoints
+    from speedplusbaseline_tpu_torch.metrics import speed_score_batched
+    from speedplusbaseline_tpu_torch.models.krn import KeypointRegressionNet
+
+    torch.manual_seed(0)
+    model = KeypointRegressionNet(11, (S, S)).to(dev, memory_format=torch.channels_last).eval()
+    rs = np.random.RandomState(4)
+    q, t = random_poses(rs, B)
+    _, _, box = eval_crop(project(q, t))
+    batch = {"image": torch.from_numpy(rs.randint(0, 256, (B, S, S, 3), dtype=np.uint8)),
+             "bbox": torch.from_numpy(box), "q_gt": torch.from_numpy(q),
+             "t_gt": torch.from_numpy(t)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    P, K, dist = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in (
+        load_tango_3d_keypoints(), CAMERA["cameraMatrix"], CAMERA["distCoeffs"]))
+    step = make_krn_eval_step(P, K, dist, dev, fp16=True)
+    x = images_to_float(batch["image"])
+
+    def forward():
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return model(x)
+
+    xc, yc = forward()
+    xc, yc = xc.float(), yc.float()
+
+    def pose_and_score(*a):
+        q_pr, t_pr = keypoints_to_pose(*a[:3], P, K, dist)
+        return speed_score_batched(t_pr, q_pr, a[4], a[3])
+
+    geometry = CudaGraphed(pose_and_score)
+    geo_args = (xc, yc, batch["bbox"], batch["q_gt"], batch["t_gt"])
+    fwd_ms, geo_ms = time_ms(forward, reps=10), time_ms(lambda: geometry(*geo_args), reps=10)
+    step_ms = time_ms(lambda: step(model, batch), reps=10)
+    keys = ("err_q", "err_t", "speed_raw", "speed_mod", "acc")
+    for _ in range(2):
+        out = step(model, batch)
+        torch.stack([out[k] for k in keys]).cpu()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        out = step(model, batch)
+        torch.stack([out[k] for k in keys]).cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    print(f"phase eval: eval step at batch {B}, {S}^2, bf16: device time forward "
+          f"{fwd_ms:.3f} ms + geometry (keypoints_to_pose + score, graph replay) "
+          f"{geo_ms:.3f} ms, whole step "
+          f"{step_ms:.3f} ms = {B * 1000 / step_ms:.1f} img/s of device time; with its "
+          f"readback on the host clock median {wall_ms:.3f} ms = {B * 1000 / wall_ms:.1f} "
+          f"img/s (10 steps: {[round(w, 2) for w in walls]})", flush=True)
 
 
 def phase_resident(dev):
@@ -415,8 +756,10 @@ def main() -> None:
 
     report = phase_kernels(dev)
     phase_ghiasi(dev)
+    phase_geometry(dev)
     launches = phase_main(dev)
     phase_resident(dev)
+    phase_eval(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 

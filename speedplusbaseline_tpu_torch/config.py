@@ -109,8 +109,6 @@ def default_cfg(**overrides) -> SimpleNamespace:
 
 # (flag, test on cfg, reason) for options the port does not serve yet.
 _UNPORTED = (
-    ("--test_epoch > 0", lambda c: c.test_epoch > 0,
-     "validation (EPnP, SPEED score) is not ported yet"),
     ("--model_name spn", lambda c: c.model_name != "krn",
      "only KRN is ported; SPN is not"),
     ("--perform_dann", lambda c: c.dann, "DANN adaptation is not ported yet"),

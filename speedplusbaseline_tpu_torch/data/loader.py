@@ -9,7 +9,9 @@ own counterpart of ``speedplusbaseline_tpu/data/loader.py``).
 * the shuffle is a per-epoch permutation from a (seed, epoch) Philox stream,
   the JAX package's, so both give the same batches.
 
-Training batches only: a short last batch is dropped.
+Training drops a short last batch; evaluation keeps it as a shorter batch
+(the JAX package pads it to a static shape and masks the padding; torch
+needs no static shape), so every test row is scored once, in CSV order.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ def _stack(samples) -> Dict[str, np.ndarray]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, device: torch.device,
                  shuffle: bool = True, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 2021):
+                 seed: int = 2021, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -37,10 +39,13 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.seed = seed
+        self.drop_last = drop_last
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -109,10 +114,17 @@ class DataLoader:
             yield {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
 
-def make_dataloader(cfg, device: torch.device) -> DataLoader:
-    """Training loader (reference build.py:45-66): cfg.batch_size, shuffled."""
+def make_dataloader(cfg, device: torch.device, is_train: bool = True) -> DataLoader:
+    """Loader of the reference's build.py:45-66. Train: cfg.batch_size,
+    shuffled, the short last batch dropped. Eval (the test CSV):
+    cfg.eval_batch_size, CSV order, half the workers, the short last batch
+    kept (the reference evaluates batch 1; per-image results are the same)."""
     from .csv_dataset import KRNDataset
 
-    return DataLoader(KRNDataset(cfg, is_train=True, is_source=True), cfg.batch_size,
-                      device, shuffle=True, num_workers=cfg.num_workers,
-                      seed=cfg.seed)
+    if is_train:
+        return DataLoader(KRNDataset(cfg, is_train=True, is_source=True), cfg.batch_size,
+                          device, shuffle=True, num_workers=cfg.num_workers,
+                          seed=cfg.seed)
+    return DataLoader(KRNDataset(cfg, is_train=False, is_source=False), cfg.eval_batch_size,
+                      device, shuffle=False, num_workers=max(1, cfg.num_workers // 2),
+                      seed=cfg.seed, drop_last=False)

@@ -1,8 +1,8 @@
-from .loops import style_gate, train_epoch
+from .loops import run_validation, style_gate, train_epoch
 from .optim import build_optimizer, set_lr, step_lr_schedule
 from .state import TrainState
-from .steps import images_to_float, krn_step, make_krn_train_step
+from .steps import images_to_float, krn_step, make_krn_eval_step, make_krn_train_step
 
-__all__ = ["style_gate", "train_epoch", "build_optimizer", "set_lr",
+__all__ = ["run_validation", "style_gate", "train_epoch", "build_optimizer", "set_lr",
            "step_lr_schedule", "TrainState", "images_to_float", "krn_step",
-           "make_krn_train_step"]
+           "make_krn_eval_step", "make_krn_train_step"]

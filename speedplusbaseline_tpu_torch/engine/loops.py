@@ -1,11 +1,15 @@
-"""Epoch loop (counterpart of ``speedplusbaseline_tpu/engine/loops.py::
-train_epoch``): host-side style gate, meters, progress bar, TB scalars."""
+"""Epoch loops (counterpart of ``speedplusbaseline_tpu/engine/loops.py::
+train_epoch`` and ``run_validation``): host-side style gate, meters,
+progress bar, TB scalars, per-image dumps."""
 from __future__ import annotations
 
+import os
+import os.path as osp
 import time
 from typing import List
 
 import numpy as np
+import torch
 
 from ..io_utils.meters import AverageMeter, report_progress
 
@@ -65,3 +69,53 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
         for name in _NAMES:
             writer.add_scalar(f"train/{name}", meters[name].avg, epoch)
     return records
+
+
+_EVAL_KEYS = ("err_q", "err_t", "speed_raw", "speed_mod", "acc")
+
+
+def run_validation(epoch, cfg, eval_step, model, loader, writer):
+    """Batched validation with the reference's metrics and per-image dumps
+    (inference.py:95-142): meters eR/eT/speed (raw)/speed (thr), the
+    ``Valid/`` scalars and err_q.txt, err_t.txt, speed_raw.txt and
+    speed_mod.txt in cfg.logdir, one ``%.5f`` line per test row in CSV
+    order. One readback per batch. Returns the four meters."""
+    time_meter = AverageMeter("ms")
+    meters = {"eR": AverageMeter("deg"), "eT": AverageMeter("m"),
+              "speed (raw)": AverageMeter("-"), "speed (thr)": AverageMeter("-")}
+    acc_meter = AverageMeter("%")
+    dumps = {k: [] for k in _EVAL_KEYS[:4]}
+
+    n_batches = len(loader)
+    start = time.time()
+    for idx, batch in enumerate(loader):
+        out = eval_step(model, batch)
+        vals = torch.stack([out[k].float() for k in _EVAL_KEYS]).cpu().numpy()
+        out = dict(zip(_EVAL_KEYS, vals))
+        B = vals.shape[1]
+        for k, v in dumps.items():
+            v.extend(out[k].tolist())
+
+        time_meter.update((time.time() - start) * 1000, B)
+        meters["eR"].update(float(np.mean(out["err_q"])), B)
+        meters["eT"].update(float(np.mean(out["err_t"])), B)
+        meters["speed (raw)"].update(float(np.mean(out["speed_raw"])), B)
+        meters["speed (thr)"].update(float(np.mean(out["speed_mod"])), B)
+        acc_meter.update(float(np.mean(out["acc"])) * 100, B)
+        report_progress(epoch=epoch, lr=float("nan"), epoch_iter=idx + 1,
+                        epoch_size=n_batches, time=time_meter, is_train=False,
+                        eT=meters["eT"], eR=meters["eR"], speed=meters["speed (raw)"],
+                        acc=acc_meter)
+        start = time.time()
+
+    if writer is not None:
+        writer.add_scalar("Valid/err_q [deg]", meters["eR"].avg, epoch)
+        writer.add_scalar("Valid/err_t [m]", meters["eT"].avg, epoch)
+        writer.add_scalar("Valid/speed (raw) [-]", meters["speed (raw)"].avg, epoch)
+        writer.add_scalar("Valid/speed (thr) [-]", meters["speed (thr)"].avg, epoch)
+    os.makedirs(cfg.logdir, exist_ok=True)
+    for key, values in dumps.items():
+        with open(osp.join(cfg.logdir, f"{key}.txt"), "w") as f:
+            for v in values:
+                f.write(f"{v:.5f}\n")
+    return meters

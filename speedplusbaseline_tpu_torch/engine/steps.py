@@ -1,5 +1,6 @@
-"""KRN train step (counterpart of ``speedplusbaseline_tpu/engine/steps.py::
-make_krn_train_step``; reference trainer.py:41-112).
+"""KRN train and eval steps (counterpart of ``speedplusbaseline_tpu/engine/
+steps.py::make_krn_train_step`` and ``make_krn_eval_step``; reference
+trainer.py:41-112, inference.py:43-144).
 
 One step: uint8 -> [0, 1] on the device, the photometric augs, the Ghiasi
 restyle when the host gate says so, the forward, ``krn_loss``, backward,
@@ -7,6 +8,13 @@ clip by global norm 1.0 and the optimizer step. ``--use_fp16`` means a
 bfloat16 autocast around the forward with f32 parameters and no GradScaler,
 as the JAX package's bf16 compute; the restyle runs in the style
 augmentor's own dtype.
+
+The eval step runs the forward in eval mode under ``torch.inference_mode``
+(bf16 autocast with ``--use_fp16``), then the pose (EPnP on the RoI-
+denormalized keypoints) and the SPEED scores in f32 on the same device,
+batched, with no host sync. The pose and score are thousands of small
+kernels whose launches, not their work, set the time; with no sync in them
+they are captured once per batch size as a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -15,6 +23,8 @@ from typing import Dict, Optional
 import torch
 
 from ..augment.photometric import apply_augment, draw_augment
+from ..geometry import keypoints_to_pose
+from ..metrics import speed_score_batched
 from ..models.krn import krn_loss
 from .optim import KRN_CLIP_NORM
 from .state import TrainState
@@ -71,3 +81,66 @@ def make_krn_train_step(cfg, device: torch.device, style_aug=None):
                         style_aug if styled else None, gen)
 
     return train_step
+
+
+class CudaGraphed:
+    """``fn(*tensors) -> dict of tensors``, replayed from a CUDA graph
+    captured at the first call with each set of input shapes; on the CPU,
+    ``fn`` itself. ``fn`` must not sync with the host. Returns copies, so a
+    later replay does not overwrite what the caller holds."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphs = {}
+
+    def __call__(self, *args):
+        if args[0].device.type != "cuda":
+            return self.fn(*args)
+        key = tuple(a.shape for a in args)
+        if key not in self.graphs:
+            with torch.cuda.device(args[0].device):
+                static_in = [a.clone() for a in args]
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):  # warm-up: lazily made constants, allocator
+                    self.fn(*static_in)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: the loader's producer thread pins host memory
+                # meanwhile, which the default (global) mode counts as an
+                # error of this capture.
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    static_out = self.fn(*static_in)
+            self.graphs[key] = (graph, static_in, static_out)
+        graph, static_in, static_out = self.graphs[key]
+        for dst, src in zip(static_in, args):
+            dst.copy_(src)
+        graph.replay()
+        return {k: v.clone() for k, v in static_out.items()}
+
+
+def make_krn_eval_step(corners3d, camera_matrix, dist_coeffs, device: torch.device,
+                       fp16: bool = False):
+    """Returns fn(model, batch) -> dict of (B,) / (B, k) device tensors:
+    q_pr, t_pr, err_q [deg], err_t [m], speed_raw, speed_mod, acc. ``batch``
+    holds image (B, H, W, 3), bbox (B, 4), q_gt (B, 4), t_gt (B, 3)."""
+    corners3d, camera_matrix, dist_coeffs = (
+        torch.as_tensor(a, dtype=torch.float32).to(device)
+        for a in (corners3d, camera_matrix, dist_coeffs))
+
+    def pose_and_score(xc, yc, bbox, q_gt, t_gt):
+        q_pr, t_pr = keypoints_to_pose(xc, yc, bbox, corners3d, camera_matrix, dist_coeffs)
+        return {"q_pr": q_pr, "t_pr": t_pr, **speed_score_batched(t_pr, q_pr, t_gt, q_gt)}
+
+    pose_and_score = CudaGraphed(pose_and_score)
+
+    def eval_step(model, batch):
+        model.eval()
+        with torch.inference_mode():
+            x = images_to_float(batch["image"])
+            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
+                xc, yc = model(x)
+            return pose_and_score(xc.float(), yc.float(), batch["bbox"].float(),
+                                  batch["q_gt"].float(), batch["t_gt"].float())
+
+    return eval_step

@@ -2,9 +2,12 @@
 
 Follows the JAX package's ``train.py`` (reference train.py:49-158): seed,
 savedir/logdir, config.txt snapshot, model + optional StyleAugmentor,
-optimizer + StepLR, auto-resume, loader, then per epoch train -> checkpoint.
-Validation, SPN, DANN and multi-device runs are not ported yet; their flags
-raise ``NotImplementedError`` (config.check_ported).
+optimizer + StepLR, auto-resume, loaders, then per epoch train -> validate
+every ``--test_epoch`` epochs -> checkpoint. Unlike the JAX trainer, the
+test loader, the Tango points and ``camera.json`` are read only when
+validation is on (``--test_epoch > 0``), so a run without validation needs
+no test split. SPN, DANN and multi-device runs are not ported yet; their
+flags raise ``NotImplementedError`` (config.check_ported).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -23,12 +26,13 @@ from .augment.styleaug import (StyleAugmentor, load_ghiasi_params,
 from .config import (check_ported, check_resume_compat, parse_cfg,
                      resolve_device, save_cfg)
 from .data.loader import make_dataloader
-from .engine.loops import train_epoch
+from .engine.loops import run_validation, train_epoch
 from .engine.optim import build_optimizer, set_lr, step_lr_schedule
 from .engine.state import TrainState
-from .engine.steps import make_krn_train_step
+from .engine.steps import make_krn_eval_step, make_krn_train_step
 from .io_utils import (SummaryWriter, checkpoint_exists, default_assets_dir,
-                       load_checkpoint, save_checkpoint, setup_logger)
+                       load_camera_intrinsics, load_checkpoint, load_tango_3d_keypoints,
+                       save_checkpoint, setup_logger)
 from .io_utils.checkpoint import CKPT_NAME
 from .models.krn import KeypointRegressionNet
 
@@ -54,6 +58,16 @@ def _style_augmentor(cfg, device: torch.device) -> StyleAugmentor:
     logger.info("Texture randomization enabled with alpha = %s", cfg.texture_alpha)
     logger.info("   - Randomization ratio: %.2f", cfg.texture_ratio)
     return aug
+
+
+def eval_setup(cfg, device: torch.device):
+    """(test loader, KRN eval step) from the test CSV, the Tango points and
+    ``{dataroot}/{dataname}/camera.json``."""
+    corners3d = load_tango_3d_keypoints(cfg.keypts_3d_model)
+    camera_matrix, dist_coeffs = load_camera_intrinsics(
+        osp.join(cfg.dataroot, cfg.dataname, "camera.json"))
+    return (make_dataloader(cfg, device, is_train=False),
+            make_krn_eval_step(corners3d, camera_matrix, dist_coeffs, device, cfg.fp16))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -99,6 +113,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         logger.info("bf16 autocast enabled (f32 parameters, no loss scaling)")
 
     train_step = make_krn_train_step(cfg, device, style_aug)
+    validate = cfg.test_epoch > 0
+    if validate:
+        test_loader, eval_step = eval_setup(cfg, device)
     schedule = step_lr_schedule(cfg.lr, cfg.lr_decay_alpha, cfg.lr_decay_step,
                                 steps_per_epoch)
     records: List[dict] = []
@@ -110,6 +127,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                                  writer, styled=style_aug is not None,
                                  lr_value=lr_value):
                 records.append({"epoch": epoch + 1, **r})
+            if validate and (epoch + 1) % cfg.test_epoch == 0:
+                run_validation(epoch + 1, cfg, eval_step, state.model, test_loader, writer)
             # "Best" degenerates to latest, as in the reference (train.py:141-146).
             perf = epoch + 1
             is_best = perf > best_perf

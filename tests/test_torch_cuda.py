@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions on the card.
+"""The hand-written CUDA kernels against their plain versions on the card,
+and the batched EPnP on the card against the CPU.
 
 Marked ``cuda``: each test skips on a machine without a GPU (the CPU tests
 reach only the plain versions). On the card, ``python -m pytest
@@ -6,11 +7,17 @@ tests/test_torch_cuda.py`` builds the kernels with nvcc and runs these; the
 module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 + 1e-4 |ref| (B1,
 1152-term sums of split-bf16 tensor-core products in another order); bf16
 1e-2 + 2^-6 |ref| (one or two bf16 ulps where the f32 results round
-differently).
+differently). EPnP: card against CPU f32 on 1-px-noisy keypoints, q within
+1e-4 after sign alignment and t within 1e-3 m (the two refinements stop at
+one minimum, f32 rounding apart), with no host sync in the call, and its
+CUDA graph replay equal to the eager call.
 """
+import numpy as np
 import pytest
 import torch
 
+from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed
+from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose, project_keypoints
 from speedplusbaseline_tpu_torch.ops import _build
 from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
                                                           instance_norm_film_plain, path_calls,
@@ -108,3 +115,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         instance_norm_film(x.half())
     with pytest.raises(ValueError):
         instance_norm_film(x, torch.ones(2, 16, device=dev, dtype=torch.bfloat16))
+
+
+def test_keypoints_to_pose_on_card_matches_cpu(dev):
+    rs = np.random.RandomState(0)
+    B = 48
+    fx = 0.0176 / 5.86e-6
+    K = torch.tensor([[fx, 0, 960], [0, fx, 600], [0, 0, 1.0]])
+    dist = torch.tensor([-0.2238, 0.5141, -6.65e-4, -2.14e-4, -0.1312])
+    P = torch.from_numpy(rs.uniform(-0.4, 0.4, (11, 3)).astype(np.float32))
+    q = torch.from_numpy(rs.randn(B, 4).astype(np.float32))
+    q = q / q.norm(dim=1, keepdim=True)
+    t = torch.from_numpy(np.stack([rs.uniform(-0.6, 0.6, B), rs.uniform(-0.4, 0.4, B),
+                                   rs.uniform(3.5, 9.0, B)], 1).astype(np.float32))
+    uv = project_keypoints(q, t, K, dist, P).mT + torch.from_numpy(
+        rs.randn(B, 11, 2).astype(np.float32))
+    lo, hi = uv.amin(1), uv.amax(1)
+    c, half = (lo + hi) / 2, 0.6 * (hi - lo).amax(1)
+    bbox = torch.stack([c[:, 0] - half, c[:, 0] + half, c[:, 1] - half, c[:, 1] + half], 1)
+    x = (uv[..., 0] - bbox[:, 0:1]) / (2 * half[:, None])
+    y = (uv[..., 1] - bbox[:, 2:3]) / (2 * half[:, None])
+    args = (x, y, bbox, P, K, dist)
+    q_cpu, t_cpu = keypoints_to_pose(*args)
+    on_card = [a.to(dev) for a in args]
+    keypoints_to_pose(*on_card)  # first call makes the cached index tensors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q_gpu, t_gpu = keypoints_to_pose(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graphed = CudaGraphed(lambda *a: dict(zip("qt", keypoints_to_pose(*a))))
+    for _ in range(2):  # capture, then replay
+        out = graphed(*on_card)
+        assert torch.equal(out["q"], q_gpu) and torch.equal(out["t"], t_gpu)
+    q_gpu, t_gpu = q_gpu.cpu(), t_gpu.cpu()
+    sign = torch.sign((q_gpu * q_cpu).sum(1, keepdim=True))
+    assert torch.isfinite(q_gpu).all() and torch.isfinite(t_gpu).all()
+    assert (q_gpu * sign - q_cpu).abs().max() <= 1e-4
+    assert (t_gpu - t_cpu).abs().max() <= 1e-3

@@ -1,6 +1,6 @@
-"""The PyTorch port imports no JAX, and its train CLI refuses what it does
-not serve: a missing GPU without --no_cuda, and the flags of parts not yet
-ported."""
+"""The PyTorch port imports no JAX, and its train and test CLIs refuse what
+they do not serve: a missing GPU without --no_cuda, and the flags of parts
+not yet ported."""
 import os
 import subprocess
 import sys
@@ -8,6 +8,7 @@ import sys
 import pytest
 import torch
 
+from speedplusbaseline_tpu_torch import test as test_cli
 from speedplusbaseline_tpu_torch import train
 from speedplusbaseline_tpu_torch.config import parse_cfg, resolve_device
 
@@ -24,7 +25,7 @@ for m in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "speedplusbaseline_tpu"))
-print(len(mods))
+print(" ".join(mods))
 assert not bad, bad
 """
 
@@ -34,7 +35,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+    mods = set(out.stdout.split())
+    assert len(mods) >= 30  # every submodule was imported
+    p = "speedplusbaseline_tpu_torch."
+    assert {p + m for m in ("geometry.epnp", "geometry.quaternion", "geometry.projection",
+                            "geometry._eigh", "geometry._precision", "metrics.pose_score",
+                            "test", "io_utils.misc", "io_utils.visualize")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -44,12 +50,21 @@ def test_train_raises_without_gpu(monkeypatch, tmp_path):
     assert resolve_device(parse_cfg(["--no_cuda"])).type == "cpu"
 
 
+def test_test_cli_raises_without_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        test_cli.main(["--logdir", str(tmp_path / "l")])
+
+
 @pytest.mark.parametrize("flags", [
-    ["--test_epoch", "1"], ["--model_name", "spn"], ["--perform_dann"],
+    ["--model_name", "spn", "--test_epoch", "1"], ["--model_name", "spn"], ["--perform_dann"],
     ["--num_devices", "2"], ["--profile_dir", "prof"], ["--use_native_loader"],
     ["--cache_dir", "cache"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError):
-        train.main(flags + ["--no_cuda", "--savedir", str(tmp_path / "s"),
-                            "--logdir", str(tmp_path / "l")])
+    """Both CLIs refuse each flag (the first case is SPN validation, SPN's
+    eval step being unported)."""
+    for main in (train.main, test_cli.main):
+        with pytest.raises(NotImplementedError):
+            main(flags + ["--no_cuda", "--savedir", str(tmp_path / "s"),
+                          "--logdir", str(tmp_path / "l")])
