@@ -9,26 +9,38 @@ Phases, each printing its own lines:
   2. build   -- nvcc builds the hand-written kernels from csrc/, and
                 cuobjdump counts the tensor-core (HGMMA) instructions of B1;
   3. kernels -- each kernel against its plain PyTorch version on the same
-                inputs (TF32 off), f32 and bf16, at the main path's shapes,
-                with times (CUDA events), bounds and library-call times; B2
-                on both of its paths, with the path, cut and time of each
-                site and the card's cluster occupancy; then
-                the whole Ghiasi generator on the card, in f32 and in bf16,
-                against the plain f32 version on the CPU;
+                inputs (TF32 off), f32 and bf16, at the shapes of both main
+                paths (KRN at 224^2, SPN at 227^2, batch 48), with times
+                (CUDA events), bounds and library-call times; B2 on both of
+                its paths, with plan()'s path, the path run, the cut and the
+                time of each site of both paths and the card's cluster
+                occupancy; B1 + B2 per styled step of each model against
+                their bound; then the whole Ghiasi generator on the card, in
+                f32 and in bf16, against the plain f32 version on the CPU;
   4. geometry -- batched EPnP (``keypoints_to_pose``) on the card at batches
                 of 48, 5 and 1: exact keypoints of random poses give
                 acc == 1 for every sample, 1-px-noisy ones agree with the
                 CPU, nothing is non-finite, and the call makes no host sync
                 (``torch.cuda.set_sync_debug_mode("error")``); its device
                 time per batch of 48;
-  5. main    -- the styled KRN trainer (``train.main``) at 224^2, batch 48,
-                AdamW, bf16, on a generated dataset of 1920x1200 JPEGs,
-                validating 100 test rows after its epoch (``--test_epoch
-                1``), then the test CLI (``test.main``) on the trainer's
-                ``model_best.pt``, each with the launch counters set to 0
-                just before it and read just after; the two evaluations must
-                agree; then the styled and plain train steps and the eval
-                step (forward, geometry) timed on a resident batch.
+  5. spn_geometry -- SPN's pose at batch 48 on the card against the CPU: the
+                Gauss-Newton position from the true attitude and the exact
+                box (also against ground truth), then top-k, softmax,
+                weighted quaternion mean and position from a 5000-class
+                weight head; no host sync; the CUDA graph replay equals the
+                eager call; its device time;
+  6. main, spn_main -- the styled trainer (``train.main``) of KRN at 224^2
+                (6 steps) and of SPN at 227^2 with 5000 classes (4 steps),
+                batch 48, AdamW, bf16, on a generated dataset of 1920x1200
+                JPEGs, validating 100 test rows after its epoch
+                (``--test_epoch 1``), then the test CLI (``test.main``) on
+                the trainer's ``model_best.pt``, each with the launch
+                counters set to 0 just before it and read just after; the
+                two evaluations must agree;
+  7. resident, eval, spn_eval -- per model, the styled and plain train steps
+                on a resident batch (host clock, and device busy time by
+                torch.profiler), and the eval step (forward, geometry) as
+                device time and on the host clock.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -62,6 +74,17 @@ B2_SITES = (
 )
 B1_SHAPE = (B, S // 4, S // 4, 128)
 B1_CALLS_PER_STEP = 5
+# SPN's 227^2 through the generator: 227 -> 114 -> 57 (B1) -> 114 -> 228.
+SPN_S, SPN_CLASSES, SPN_NEIGHBORS = 227, 5000, 5
+SPN_B2_SITES = (
+    ("layer0", (B, 227, 227, 32), False, True),
+    ("layer1", (B, 114, 114, 64), False, True),
+    ("layer2", (B, 57, 57, 128), False, True),
+    ("layer8", (B, 114, 114, 64), True, True),
+    ("layer9", (B, 228, 228, 32), True, True),
+    ("layer10", (B, 228, 228, 3), True, False),
+)
+SPN_B1_SHAPE = (B, 57, 57, 128)
 # B1's tensor-core passes per call from bf16 x: conv 1 x*w_hi + x*w_lo, conv 2
 # a_hi*w_hi + a_hi*w_lo + a_lo*w_hi (split-bf16 operands, csrc/resblock.cu).
 B1_PASSES = 5
@@ -88,6 +111,11 @@ CAMERA = {"cameraMatrix": [[FOCAL_PX, 0.0, 960.0], [0.0, FOCAL_PX, 600.0], [0.0,
 # tenth of the pose error that the 1-px noise itself causes (phase geometry
 # prints both).
 TOL_EPNP_CARD = (1e-4, 1e-3)
+# SPN's position from the true attitude and the exact box against ground
+# truth, in m (the CPU reads 2e-6 m at batch 48); SPN's pose on the card
+# against the CPU, |dq|inf and |dt|inf in m, as for EPnP.
+TOL_SPN_GT = 1e-4
+TOL_SPN_CARD = (1e-4, 1e-3)
 EVAL_ROWS = 100
 
 
@@ -174,9 +202,82 @@ def compare(name: str, got, ref, tol) -> float:
     return max_err
 
 
-def phase_kernels(dev):
+def b2_sites(dev, g, sites, model: str):
+    """B2 at each (layer, NHWC shape, FiLM, ReLU) site of one styled step of
+    ``model``, bf16: checked against the plain version, timed, its path and
+    cut printed beside plan()'s; fails if a site ran another path than its
+    plan. Returns (per-step totals, site records, cluster configs, max err)."""
     import torch
     import torch.nn.functional as F
+
+    from speedplusbaseline_tpu_torch.ops import instancenorm as inf
+
+    tot = {"ms": 0.0, "paced_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    records, configs, err = [], set(), 0.0
+    for layer, shape, film, relu in sites:
+        p = inf.plan_on_card(shape, torch.bfloat16, dev)
+        x = torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
+        gam = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
+        bet = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
+        err = max(err, compare(f"B2 {model} {layer} {shape} bf16 film={film} relu={relu}",
+                               inf.instance_norm_film(x, gam, bet, relu=relu),
+                               inf.instance_norm_film_plain(x, gam, bet, relu=relu),
+                               TOL["bfloat16"]))
+        x_nchw = x.permute(0, 3, 1, 2)
+        calls = dict(inf.path_calls)
+        ms = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu))
+        ran = {k: v - calls[k] for k, v in inf.path_calls.items() if v != calls[k]}
+        if list(ran) != [p.path]:
+            fail(f"B2 {model} {layer}: planned the {p.path} path, ran {ran}")
+        paced = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu), hold=False)
+        pms = time_ms(lambda: inf.instance_norm_film_plain(x, gam, bet, relu=relu))
+        lms = time_ms(lambda: F.instance_norm(x_nchw, eps=1e-5))
+        bound = max(inf.bytes_moved(shape, torch.bfloat16, film) / HBM_BYTES_PER_S,
+                    inf.flops(shape) / F32_FLOPS) * 1e3
+        cut = (f"K={p.k}, {p.block_bytes} B/block, {p.threads} threads" if p.path == "cluster"
+               else f"{p.nchunks} chunks of {p.rows_per_chunk} rows")
+        print(f"  B2 {model} {layer} {shape} bf16 film={film} relu={relu}: plan {p.path} "
+              f"({cut}), ran {p.path}: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+              f"{ms / bound:.2f}x bound; enqueue-paced {paced:.4f} ms; plain {pms:.4f} ms, "
+              f"F.instance_norm {lms:.4f} ms", flush=True)
+        records.append({"model": model, "layer": layer, "shape": list(shape), "path": p.path,
+                        "k": p.k, "block_bytes": p.block_bytes, "ms": ms, "bound_ms": bound,
+                        "x_bound": ms / bound, "paced_ms": paced})
+        if p.path == "cluster":
+            configs.add((p.k, p.threads, p.smem_bytes))
+        for k, v in (("ms", ms), ("paced_ms", paced), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bound)):
+            tot[k] += v
+    print(f"  B2 per {model} styled step: kernel {tot['ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.0%} of bound); "
+          f"enqueue-paced {tot['paced_ms']:.4f} ms", flush=True)
+    return tot, records, configs, err
+
+
+def b1_time(dev, args, shape, model: str):
+    """B1 per call at ``shape`` in bf16 against its plain version, with its
+    bound: (kernel ms, plain ms, bound ms, one-bf16-pass bound ms)."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.ops import resblock as rb
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    ms = time_ms(lambda: rb.ghiasi_resblock(x, *args), 10)
+    pms = time_ms(lambda: rb.ghiasi_resblock_plain(x, *args), 10)
+    by_split = rb.flops(shape, B1_PASSES) / BF16_TENSOR_FLOPS * 1e3
+    by_bytes = rb.bytes_moved(shape, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+    by_tc = max(rb.flops(shape) / BF16_TENSOR_FLOPS * 1e3, by_bytes)
+    by_f32 = rb.flops(shape) / F32_FLOPS * 1e3
+    print(f"  B1 {model} {shape} bf16: kernel {ms:.4f} ms/call, plain {pms:.4f} ms/call, "
+          f"bound {max(by_split, by_bytes):.4f} ms (operations: {B1_PASSES} split-bf16 "
+          f"passes on the tensor cores; bytes {by_bytes:.4f} ms; one bf16 pass "
+          f"{by_tc:.4f} ms; f32 on the CUDA cores {by_f32:.4f} ms)", flush=True)
+    return ms, pms, max(by_split, by_bytes), by_tc
+
+
+def phase_kernels(dev):
+    import torch
 
     from speedplusbaseline_tpu_torch.ops import instancenorm as inf
     from speedplusbaseline_tpu_torch.ops import resblock as rb
@@ -185,8 +286,8 @@ def phase_kernels(dev):
     dtypes = (torch.float32, torch.bfloat16)
     report = {}
 
-    # B2: every site shape, an odd one, and shapes of the two-pass path (no
-    # 16-byte split; a plane just past what 16 cluster blocks hold); input
+    # B2: every KRN site shape, an odd one, and shapes of the two-pass path
+    # (no 16-byte split; a plane just past what 16 cluster blocks hold); input
     # mean is 10x its std.
     print("phase kernels: B2 instance_norm_film vs instance_norm_film_plain", flush=True)
     err_b2 = 0.0
@@ -209,49 +310,17 @@ def phase_kernels(dev):
                     TOL[str(dt)[6:]]))
     if paths != {"cluster", "two_pass"}:
         fail(f"B2 checks reached only the {paths} path(s)")
-    tot = {"ms": 0.0, "paced_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    sites, configs = [], set()
-    for layer, shape, film, relu in B2_SITES:
-        p = inf.plan_on_card(shape, torch.bfloat16, dev)
-        x = torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
-        gam = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
-        bet = torch.randn(shape[0], shape[3], device=dev, generator=g) if film else None
-        x_nchw = x.permute(0, 3, 1, 2)
-        calls = dict(inf.path_calls)
-        ms = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu))
-        ran = {k: v - calls[k] for k, v in inf.path_calls.items() if v != calls[k]}
-        if list(ran) != [p.path]:
-            fail(f"B2 {layer}: planned the {p.path} path, ran {ran}")
-        paced = time_ms(lambda: inf.instance_norm_film(x, gam, bet, relu=relu), hold=False)
-        pms = time_ms(lambda: inf.instance_norm_film_plain(x, gam, bet, relu=relu))
-        lms = time_ms(lambda: F.instance_norm(x_nchw, eps=1e-5))
-        bound = max(inf.bytes_moved(shape, torch.bfloat16, film) / HBM_BYTES_PER_S,
-                    inf.flops(shape) / F32_FLOPS) * 1e3
-        cut = (f"K={p.k}, {p.block_bytes} B/block, {p.threads} threads" if p.path == "cluster"
-               else f"{p.nchunks} chunks of {p.rows_per_chunk} rows")
-        print(f"  B2 {layer} {shape} bf16 film={film} relu={relu}: {p.path} ({cut}): kernel "
-              f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), {ms / bound:.2f}x bound; "
-              f"enqueue-paced {paced:.4f} ms; plain {pms:.4f} ms, F.instance_norm "
-              f"{lms:.4f} ms", flush=True)
-        sites.append({"layer": layer, "shape": list(shape), "path": p.path, "k": p.k,
-                      "block_bytes": p.block_bytes, "ms": ms, "bound_ms": bound,
-                      "x_bound": ms / bound, "paced_ms": paced})
-        if p.path == "cluster":
-            configs.add((p.k, p.threads, p.smem_bytes))
-        for k, v in (("ms", ms), ("paced_ms", paced), ("plain_ms", pms), ("library_ms", lms),
-                     ("bound_ms", bound)):
-            tot[k] += v
-    for k, threads, smem in sorted(configs):
+    tot, sites, configs, err = b2_sites(dev, g, B2_SITES, "krn")
+    spn_tot, spn_sites, spn_configs, spn_err = b2_sites(dev, g, SPN_B2_SITES, "spn")
+    for k, threads, smem in sorted(configs | spn_configs):
         n = inf.max_active_clusters(dev.index or 0, torch.bfloat16, k, threads, smem)
         print(f"  B2 cudaOccupancyMaxActiveClusters: {n} clusters of {k} blocks x {threads} "
               f"threads x {smem} B shared memory (bf16)", flush=True)
-    print(f"  B2 per styled step: kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-          f"({tot['bound_ms'] / tot['ms']:.0%} of bound); enqueue-paced {tot['paced_ms']:.4f} "
-          "ms", flush=True)
-    report["instance_norm_film"] = {"max_abs_err": err_b2, "bound_by": "bytes",
+    report["instance_norm_film"] = {"max_abs_err": max(err_b2, err, spn_err), "bound_by": "bytes",
                                     "bound_basis": "one read of x and one write of y at "
                                                    "the HBM rate",
-                                    "bound_ms_bf16_tensor_core": None, "sites": sites, **tot}
+                                    "bound_ms_bf16_tensor_core": None,
+                                    "sites": sites + spn_sites, **tot, "spn": spn_tot}
 
     print("phase kernels: B1 ghiasi_resblock vs ghiasi_resblock_plain", flush=True)
     err_b1 = 0.0
@@ -265,7 +334,8 @@ def phase_kernels(dev):
                  torch.randn(C, device=dev, generator=g) * 0.1]
                 + [torch.randn(shape[0], C, device=dev, generator=g) for _ in range(4)])
 
-    for shape in (B1_SHAPE, (2, 57, 57, 128), (2, 8, 8, 128), (2, 9, 9, 128), (1, 13, 6, 40)):
+    for shape in (B1_SHAPE, SPN_B1_SHAPE, (2, 57, 57, 128), (2, 8, 8, 128), (2, 9, 9, 128),
+                  (1, 13, 6, 40)):
         args = block_args(shape)
         for dt in dtypes:
             x = torch.randn(shape, device=dev, generator=g).to(dt)
@@ -273,25 +343,20 @@ def phase_kernels(dev):
             err_b1 = max(err_b1, compare(f"B1 {shape} {str(dt)[6:]}",
                                          rb.ghiasi_resblock(x, *args),
                                          rb.ghiasi_resblock_plain(x, *args), tol))
-    args = block_args(B1_SHAPE)
-    x = torch.randn(B1_SHAPE, device=dev, generator=g).to(torch.bfloat16)
-    ms = time_ms(lambda: rb.ghiasi_resblock(x, *args), 10)
-    pms = time_ms(lambda: rb.ghiasi_resblock_plain(x, *args), 10)
-    by_split = rb.flops(B1_SHAPE, B1_PASSES) / BF16_TENSOR_FLOPS * 1e3
-    by_bytes = rb.bytes_moved(B1_SHAPE, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
-    by_tc = max(rb.flops(B1_SHAPE) / BF16_TENSOR_FLOPS * 1e3, by_bytes)
-    by_f32 = rb.flops(B1_SHAPE) / F32_FLOPS * 1e3
-    print(f"  B1 {B1_SHAPE} bf16: kernel {ms:.4f} ms/call, plain {pms:.4f} ms/call, "
-          f"bound {max(by_split, by_bytes):.4f} ms (operations: {B1_PASSES} split-bf16 "
-          f"passes on the tensor cores; bytes {by_bytes:.4f} ms; one bf16 pass "
-          f"{by_tc:.4f} ms; f32 on the CUDA cores {by_f32:.4f} ms)", flush=True)
     n = B1_CALLS_PER_STEP
+    per = {}
+    for model, shape in (("krn", B1_SHAPE), ("spn", SPN_B1_SHAPE)):
+        ms, pms, bound, by_tc = b1_time(dev, block_args(shape), shape, model)
+        per[model] = {"ms": n * ms, "plain_ms": n * pms, "bound_ms": n * bound,
+                      "bound_ms_bf16_tensor_core": n * by_tc, "library_ms": None}
     report["ghiasi_resblock"] = {"max_abs_err": err_b1, "bound_by": "operations",
                                  "bound_basis": f"{B1_PASSES} split-bf16 passes at the "
                                                 "bf16 tensor-core peak",
-                                 "ms": n * ms, "plain_ms": n * pms,
-                                 "bound_ms": n * max(by_split, by_bytes),
-                                 "bound_ms_bf16_tensor_core": n * by_tc, "library_ms": None}
+                                 **per["krn"], "spn": per["spn"]}
+    for model, b2, b1 in (("krn", tot, per["krn"]), ("spn", spn_tot, per["spn"])):
+        ms, bound = b2["ms"] + b1["ms"], b2["bound_ms"] + b1["bound_ms"]
+        print(f"phase kernels: B1 + B2 per {model} styled step (batch {B}): kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound / ms:.0%} of bound)", flush=True)
     return report
 
 
@@ -485,22 +550,124 @@ def time_geometry(args):
           "equals the eager call bit for bit", flush=True)
 
 
-def write_dataset(root: str, n_rows: int, n_images: int = 48, seed: int = 0) -> None:
-    """KRN CSVs + 1920x1200 JPEGs in the layout data/csv_dataset.py reads:
-    the train CSV of ``n_rows`` rows (random boxes and keypoints), the
-    ``lightbox.csv`` test CSV of EVAL_ROWS rows whose pose, box and
-    keypoints are the Tango points projected at random poses, and
-    camera.json."""
+def tight_boxes(uv):
+    """(B, 4) [xmin, xmax, ymin, ymax] of pixel keypoints (B, N, 2)."""
+    import numpy as np
+
+    return np.stack([uv[..., 0].min(1), uv[..., 0].max(1), uv[..., 1].min(1),
+                     uv[..., 1].max(1)], 1).astype(np.float32)
+
+
+def no_sync(fn, what: str):
+    """fn() with ``set_sync_debug_mode("error")``: fails if it synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_spn_geometry(dev):
+    """SPN's pose on the card at batch 48 against the CPU on the same inputs:
+    the Gauss-Newton position from the true attitude and the exact box of
+    the projected Tango points (against ground truth too), then the whole
+    pose from a weight head (top-k, softmax, weighted mean of the class
+    quaternions, position); no host sync; the graph replay equals the eager
+    call; device time."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed, spn_pose
+    from speedplusbaseline_tpu_torch.geometry import compute_position_spn_batched
+    from speedplusbaseline_tpu_torch.io_utils import (load_attitude_classes,
+                                                      load_tango_3d_keypoints)
+
+    rs = np.random.RandomState(6)
+    q, t = random_poses(rs, B)
+    box = tight_boxes(project(q, t))
+    consts = [torch.from_numpy(load_tango_3d_keypoints()), torch.tensor(CAMERA["cameraMatrix"]),
+              torch.tensor(CAMERA["distCoeffs"])]
+    consts_dev = [c.to(dev) for c in consts]
+    q_class = torch.from_numpy(load_attitude_classes())
+
+    args = [torch.from_numpy(q), torch.from_numpy(box)]
+    t_cpu = compute_position_spn_batched(*args, *consts)
+    args_dev = [a.to(dev) for a in args] + consts_dev
+    compute_position_spn_batched(*args_dev)
+    t_gpu = no_sync(lambda: compute_position_spn_batched(*args_dev),
+                    "spn_geometry: compute_position_spn_batched").cpu()
+    gt = np.abs(t_gpu.numpy() - t).max()
+    dt = (t_gpu - t_cpu).abs().max().item()
+    print(f"phase spn_geometry: B={B}, true attitude and exact box: position vs ground truth "
+          f"|dt| {gt:.2e} m (tol {TOL_SPN_GT:g}), card vs CPU |dt| {dt:.2e} m (tol "
+          f"{TOL_SPN_CARD[1]:g}); no host sync", flush=True)
+    if not np.isfinite(gt) or gt > TOL_SPN_GT or dt > TOL_SPN_CARD[1]:
+        fail("spn_geometry: the position misses the ground truth or the CPU")
+
+    # A weight head whose top class is the true attitude's nearest bin.
+    logits = torch.randn(B, SPN_CLASSES, generator=torch.Generator().manual_seed(7))
+    near = torch.from_numpy(quat_bins_batch(q, q_class.numpy(), 1)[0][:, 0].astype(np.int64))
+    logits[torch.arange(B), near] += 8.0
+    pose_args = [logits, torch.from_numpy(box)]
+    q_cpu, t_cpu = spn_pose(*pose_args, q_class, *consts, SPN_NEIGHBORS)
+    dev_args = [a.to(dev) for a in pose_args] + [q_class.to(dev)] + consts_dev
+    spn_pose(*dev_args, SPN_NEIGHBORS)
+    q_gpu, t_gpu = no_sync(lambda: spn_pose(*dev_args, SPN_NEIGHBORS), "spn_geometry: spn_pose")
+    graphed = CudaGraphed(lambda *a: dict(zip("qt", spn_pose(*a, SPN_NEIGHBORS))))
+    out = graphed(*dev_args)
+    out = graphed(*dev_args)  # a replay
+    if not (torch.equal(out["q"], q_gpu) and torch.equal(out["t"], t_gpu)):
+        fail("spn_geometry: the graph replay differs from the eager call")
+    q_gpu, t_gpu = q_gpu.cpu(), t_gpu.cpu()
+    if not (torch.isfinite(q_gpu).all() and torch.isfinite(t_gpu).all()):
+        fail("spn_geometry: non-finite pose")
+    dq = (q_gpu * torch.sign((q_gpu * q_cpu).sum(1, keepdim=True)) - q_cpu).abs().max().item()
+    dt = (t_gpu - t_cpu).abs().max().item()
+    print(f"phase spn_geometry: B={B}, pose from a {SPN_CLASSES}-class weight head (top "
+          f"{SPN_NEIGHBORS}): card vs CPU |dq| {dq:.2e} (tol {TOL_SPN_CARD[0]:g}), |dt| "
+          f"{dt:.2e} m (tol {TOL_SPN_CARD[1]:g}); no host sync; the graph replay equals the "
+          "eager call bit for bit", flush=True)
+    if dq > TOL_SPN_CARD[0] or dt > TOL_SPN_CARD[1]:
+        fail("spn_geometry: the card disagrees with the CPU")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spn_pose(*dev_args, SPN_NEIGHBORS)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    ms = time_ms(lambda: graphed(*dev_args), reps=20)
+    eager_ms = time_ms(lambda: spn_pose(*dev_args, SPN_NEIGHBORS), reps=5, hold=False)
+    print(f"phase spn_geometry: spn_pose at batch {B}: {kernels} device kernels a call "
+          f"(torch.profiler); device time {ms:.3f} ms (CUDA graph replay, device held); "
+          f"called eagerly {eager_ms:.3f} ms (host-paced)", flush=True)
+
+
+def quat_bins_batch(q, q_class, n: int):
+    """The nearest ``n`` attitude classes of each quaternion in q (B, 4) and
+    their weights 1 - theta / pi^2, normalized: a numpy copy of the JAX
+    package's ``data/preprocess.py::get_quat_bins``, one row per q."""
+    import numpy as np
+
+    dots = np.minimum(np.abs(np.asarray(q, np.float64) @ q_class.astype(np.float64).T), 1.0)
+    angles = 2.0 * np.arccos(dots)
+    order = np.argsort(angles, axis=1, kind="stable")[:, :n]
+    weights = 1.0 - np.take_along_axis(angles, order, 1) / np.pi ** 2
+    return order, weights / weights.sum(1, keepdims=True)
+
+
+def write_images(base: str, rs, n_images: int):
+    """``n_images`` random 1920x1200 JPEGs under base/images; their names."""
     import cv2
     import numpy as np
 
-    rs = np.random.RandomState(seed)
-    os.makedirs(os.path.join(root, "speedplus"), exist_ok=True)
-    with open(os.path.join(root, "speedplus", "camera.json"), "w") as f:
-        json.dump(CAMERA, f)
-    base = os.path.join(root, "speedplus", "synthetic")
     os.makedirs(os.path.join(base, "images"), exist_ok=True)
-    os.makedirs(os.path.join(base, "splits_krn"), exist_ok=True)
     names = []
     for i in range(n_images):
         small = rs.randint(0, 256, (30, 48, 3), dtype=np.uint8)
@@ -509,7 +676,49 @@ def write_dataset(root: str, n_rows: int, n_images: int = 48, seed: int = 0) -> 
         cv2.imwrite(os.path.join(base, "images", name), img,
                     [cv2.IMWRITE_JPEG_QUALITY, 90])
         names.append(name)
-    with open(os.path.join(base, "splits_krn", "train.csv"), "w") as f:
+    return names
+
+
+def write_csv(path: str, rows) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(", ".join(str(v) for v in row) + "\n")
+
+
+def write_dataset(root: str, model: str, n_rows: int, n_images: int = 48, seed: int = 0) -> None:
+    """The CSVs of ``model`` + 1920x1200 JPEGs in the layout
+    data/csv_dataset.py reads, and camera.json: the train CSV of ``n_rows``
+    rows and the ``lightbox.csv`` test CSV of EVAL_ROWS rows whose pose, box
+    (and KRN keypoints) are the Tango points projected at random poses. KRN's
+    train rows have random boxes and keypoints; SPN's are projected poses
+    too, with their nearest SPN_NEIGHBORS attitude classes and weights."""
+    import numpy as np
+
+    from speedplusbaseline_tpu_torch.io_utils import load_attitude_classes
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "speedplus"), exist_ok=True)
+    with open(os.path.join(root, "speedplus", "camera.json"), "w") as f:
+        json.dump(CAMERA, f)
+    base = os.path.join(root, "speedplus", "synthetic")
+    names = write_images(base, rs, n_images)
+    splits = f"splits_{model}"
+
+    def pose_rows(n):
+        q, t = random_poses(rs, n)
+        uv = project(q, t)
+        box = tight_boxes(uv)
+        if model == "krn":
+            labels = uv.reshape(n, -1)
+        else:
+            classes, weights = quat_bins_batch(q, load_attitude_classes(), SPN_NEIGHBORS)
+            labels = np.concatenate([classes, weights], 1)
+        return [[f"synthetic/images/{names[r % n_images]}"] + box[r].tolist() + q[r].tolist()
+                + t[r].tolist() + labels[r].tolist() for r in range(n)]
+
+    if model == "krn":
+        rows = []
         for r in range(n_rows):
             cx, cy = rs.uniform(500, 1420), rs.uniform(400, 800)
             half = rs.uniform(100, 300)
@@ -518,37 +727,43 @@ def write_dataset(root: str, n_rows: int, n_images: int = 48, seed: int = 0) -> 
             q = rs.randn(4)
             q /= np.linalg.norm(q)
             t = [rs.uniform(-0.3, 0.3), rs.uniform(-0.2, 0.2), rs.uniform(3, 6)]
-            row = ([f"synthetic/images/{names[r % n_images]}", kx.min(), kx.max(),
-                    ky.min(), ky.max()] + q.tolist() + t
-                   + np.stack([kx, ky], 1).reshape(-1).tolist())
-            f.write(", ".join(str(v) for v in row) + "\n")
-    q, t = random_poses(rs, EVAL_ROWS)
-    uv = project(q, t)
-    test_dir = os.path.join(root, "speedplus", "lightbox", "splits_krn")
-    os.makedirs(test_dir, exist_ok=True)
-    with open(os.path.join(test_dir, "lightbox.csv"), "w") as f:
-        for r in range(EVAL_ROWS):
-            u = uv[r]
-            row = ([f"synthetic/images/{names[r % n_images]}", u[:, 0].min(), u[:, 0].max(),
-                    u[:, 1].min(), u[:, 1].max()] + q[r].tolist() + t[r].tolist()
-                   + u.reshape(-1).tolist())
-            f.write(", ".join(str(v) for v in row) + "\n")
+            rows.append([f"synthetic/images/{names[r % n_images]}", kx.min(), kx.max(),
+                         ky.min(), ky.max()] + q.tolist() + t
+                        + np.stack([kx, ky], 1).reshape(-1).tolist())
+    else:
+        rows = pose_rows(n_rows)
+    write_csv(os.path.join(base, splits, "train.csv"), rows)
+    write_csv(os.path.join(root, "speedplus", "lightbox", splits, "lightbox.csv"),
+              pose_rows(EVAL_ROWS))
 
 
-def phase_main(dev, steps: int = 6):
+# Per model: (phase name, input side, the flags beyond the common ones, the
+# loss terms of a step). SPN's classes are the default --attitude_class's
+# fallback, assets/attitude_classes.npy.
+MAIN = {"krn": ("main", S, [], ("loss_x", "loss_y")),
+        "spn": ("spn_main", SPN_S, ["--num_classes", str(SPN_CLASSES)], ("loss_c", "loss_r"))}
+
+
+def phase_main(dev, model: str, steps: int):
+    """The styled trainer of ``model`` from disk at full width, batch 48,
+    AdamW, bf16, validating EVAL_ROWS rows after its epoch, then the test CLI
+    on its model_best.pt; the two evaluations must agree. Returns the kernel
+    launches of the training run."""
     import numpy as np
     import torch
 
     from speedplusbaseline_tpu_torch import test, train
     from speedplusbaseline_tpu_torch.ops import _build
 
+    phase, side, extra, losses = MAIN[model]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        write_dataset(tmp, steps * B)
-        print(f"phase main: dataset of {steps * B} rows written in "
+        write_dataset(tmp, model, steps * B)
+        print(f"phase {phase}: dataset of {steps * B} rows written in "
               f"{time.time() - t0:.1f} s", flush=True)
-        common = ["--dataroot", tmp, "--model_name", "krn", "--input_shape", str(S), str(S),
-                  "--use_fp16", "--num_workers", "8", "--eval_batch_size", str(B)]
+        common = ["--dataroot", tmp, "--model_name", model, "--input_shape", str(side),
+                  str(side), "--use_fp16", "--num_workers", "8", "--eval_batch_size",
+                  str(B)] + extra
         argv = common + ["--savedir", os.path.join(tmp, "save"),
                          "--logdir", os.path.join(tmp, "log"), "--batch_size", str(B),
                          "--optimizer", "adamw", "--lr", "0.001", "--weight_decay", "0.01",
@@ -562,31 +777,37 @@ def phase_main(dev, steps: int = 6):
         launches = dict(_build.launches)
         print("", flush=True)
         if len(records) != steps:
-            fail(f"main path ran {len(records)} steps, expected {steps}")
-        losses = [r["loss_x"] + r["loss_y"] for r in records]
-        if not all(np.isfinite(losses)):
-            fail(f"non-finite loss in {losses}")
+            fail(f"{phase} ran {len(records)} steps, expected {steps}")
+        loss = [sum(r[k] for k in losses) for r in records]
+        if not all(np.isfinite(loss)):
+            fail(f"{phase}: non-finite loss in {loss}")
         if not all(r["styled"] for r in records):
-            fail("texture_ratio 1.0 left a step unstyled")
-        if not os.path.exists(os.path.join(tmp, "save", "checkpoint.pt")):
-            fail("no checkpoint written")
-        if launches["ghiasi_resblock"] < 5 * steps or launches["instance_norm_film"] < 6 * steps:
-            fail(f"kernel launches {launches} too few for {steps} styled steps")
+            fail(f"{phase}: texture_ratio 1.0 left a step unstyled")
+        for f in ("checkpoint.pt", "model_best.pt"):
+            if not os.path.exists(os.path.join(tmp, "save", f)):
+                fail(f"{phase}: no {f} written")
+        if (launches["ghiasi_resblock"] < B1_CALLS_PER_STEP * steps
+                or launches["instance_norm_film"] < 6 * steps):
+            fail(f"{phase}: kernel launches {launches} too few for {steps} styled steps")
         ms = [r["ms"] for r in records[1:]]
         step_ms = statistics.median(ms)
-        print(f"phase main: {steps} styled steps, losses {[round(v, 4) for v in losses]}, "
-              f"launches {launches}, wall {wall:.1f} s incl. set-up", flush=True)
-        print(f"phase main: step ms after the first {[round(v, 2) for v in ms]}; median "
+        print(f"phase {phase}: {steps} styled {model} steps at {side}^2, losses "
+              f"{[round(v, 4) for v in loss]} ({' + '.join(losses)}), launches {launches}, "
+              f"wall {wall:.1f} s incl. set-up", flush=True)
+        print(f"phase {phase}: step ms after the first {[round(v, 2) for v in ms]}; median "
               f"{step_ms:.2f} ms = {B * 1000 / step_ms:.1f} img/s (from disk, "
               f"8 loader threads)", flush=True)
-        valid = check_eval(os.path.join(tmp, "log"), "trainer's validation")
+        valid = check_eval(os.path.join(tmp, "log"), "trainer's validation", phase)
         with open(os.path.join(tmp, "log", "scalars.jsonl")) as f:
             tags = {r["tag"]: r["value"] for r in map(json.loads, f)}
+        if not {f"train/{k}" for k in losses} <= set(tags):
+            fail(f"{phase}: the train/ loss scalars {losses} are missing from {sorted(tags)}")
         for name, tag in VALID_TAGS.items():
             # the dumps are printed to 1e-5; the meters average f32 batch means
             if tag not in tags or not math.isclose(tags[tag], valid[name].mean(), rel_tol=1e-6,
                                                    abs_tol=1e-5):
-                fail(f"trainer's validation: scalar {tag!r} missing or not the dumps' mean")
+                fail(f"{phase}: trainer's validation: scalar {tag!r} missing or not the "
+                     "dumps' mean")
 
         # The test CLI on the trainer's weights: the same rows, the same numbers.
         _build.reset_launches()
@@ -598,17 +819,17 @@ def phase_main(dev, steps: int = 6):
         torch.cuda.synchronize()
         wall = time.time() - t0
         test_launches = dict(_build.launches)
-        tested = check_eval(os.path.join(tmp, "log_test"), "test CLI")
+        tested = check_eval(os.path.join(tmp, "log_test"), "test CLI", phase)
         with open(os.path.join(tmp, "log_test", "results.txt")) as f:
             results = f.read().splitlines()
         if [r.split(":")[0] for r in results] != list(VALID_TAGS):
-            fail(f"results.txt holds {results}")
+            fail(f"{phase}: results.txt holds {results}")
         for name in VALID_TAGS:
             if not math.isclose(meters[name].avg, tags[VALID_TAGS[name]], rel_tol=1e-4):
-                fail(f"test CLI {name} {meters[name].avg} != trainer's validation "
+                fail(f"{phase}: test CLI {name} {meters[name].avg} != trainer's validation "
                      f"{tags[VALID_TAGS[name]]}")
-        print(f"phase main: test CLI on model_best.pt: {results}; agrees with the trainer's "
-              f"validation (rel 1e-4; dumps max diff "
+        print(f"phase {phase}: test CLI on model_best.pt: {results}; agrees with the "
+              f"trainer's validation (rel 1e-4; dumps max diff "
               f"{max(np.abs(tested[k] - valid[k]).max() for k in DUMPS):.2e}); launches "
               f"{test_launches}, wall {wall:.1f} s incl. set-up", flush=True)
     return launches
@@ -621,7 +842,7 @@ DUMPS = {"eR": "err_q.txt", "eT": "err_t.txt", "speed (raw)": "speed_raw.txt",
          "speed (thr)": "speed_mod.txt"}
 
 
-def check_eval(logdir: str, what: str):
+def check_eval(logdir: str, what: str, phase: str):
     """The four dumps of one evaluation: EVAL_ROWS finite lines each.
     Returns meter name -> the rows."""
     import numpy as np
@@ -631,55 +852,68 @@ def check_eval(logdir: str, what: str):
         with open(os.path.join(logdir, fname)) as f:
             rows = np.array([float(v) for v in f.read().split()])
         if rows.shape != (EVAL_ROWS,) or not np.isfinite(rows).all():
-            fail(f"{what}: {fname} holds {rows.shape[0]} rows, "
+            fail(f"{phase}: {what}: {fname} holds {rows.shape[0]} rows, "
                  f"{int(np.isfinite(rows).sum())} finite; expected {EVAL_ROWS}")
         out[name] = rows
-    print(f"phase main: {what}: {EVAL_ROWS} rows in each dump, all finite; means "
+    print(f"phase {phase}: {what}: {EVAL_ROWS} rows in each dump, all finite; means "
           f"{ {k: round(float(v.mean()), 5) for k, v in out.items()} }", flush=True)
     return out
 
 
-def phase_eval(dev):
-    """The KRN eval step on one device-resident batch of 48 at 224^2, bf16:
-    the forward and the geometry (pose + score) as device time, and the
-    whole step with its one readback on the host clock."""
+def phase_eval(dev, model_name: str):
+    """The eval step of ``model_name`` on one device-resident batch of 48 at
+    its full size, bf16: the forward and the geometry (pose + score) as
+    device time, and the whole step with its one readback on the host
+    clock."""
     import numpy as np
     import torch
 
-    from speedplusbaseline_tpu_torch.engine import images_to_float, make_krn_eval_step
+    from speedplusbaseline_tpu_torch.config import default_cfg
+    from speedplusbaseline_tpu_torch.engine import (images_to_float, make_krn_eval_step,
+                                                    make_spn_eval_step, spn_pose)
     from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed
     from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose
-    from speedplusbaseline_tpu_torch.io_utils import load_tango_3d_keypoints
+    from speedplusbaseline_tpu_torch.io_utils import (load_attitude_classes,
+                                                      load_tango_3d_keypoints)
     from speedplusbaseline_tpu_torch.metrics import speed_score_batched
-    from speedplusbaseline_tpu_torch.models.krn import KeypointRegressionNet
+    from speedplusbaseline_tpu_torch.models import get_model
 
+    phase, side = ("eval", S) if model_name == "krn" else ("spn_eval", SPN_S)
     torch.manual_seed(0)
-    model = KeypointRegressionNet(11, (S, S)).to(dev, memory_format=torch.channels_last).eval()
+    model = get_model(default_cfg(model_name=model_name, input_shape=(side, side),
+                                  num_classes=SPN_CLASSES))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
     rs = np.random.RandomState(4)
     q, t = random_poses(rs, B)
-    _, _, box = eval_crop(project(q, t))
-    batch = {"image": torch.from_numpy(rs.randint(0, 256, (B, S, S, 3), dtype=np.uint8)),
+    uv = project(q, t)
+    box = eval_crop(uv)[2] if model_name == "krn" else tight_boxes(uv)
+    batch = {"image": torch.from_numpy(rs.randint(0, 256, (B, side, side, 3), dtype=np.uint8)),
              "bbox": torch.from_numpy(box), "q_gt": torch.from_numpy(q),
              "t_gt": torch.from_numpy(t)}
     batch = {k: v.to(dev) for k, v in batch.items()}
     P, K, dist = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in (
         load_tango_3d_keypoints(), CAMERA["cameraMatrix"], CAMERA["distCoeffs"]))
-    step = make_krn_eval_step(P, K, dist, dev, fp16=True)
+    if model_name == "krn":
+        step = make_krn_eval_step(P, K, dist, dev, fp16=True)
+        pose = lambda a: keypoints_to_pose(*a[:2], a[2], P, K, dist)  # noqa: E731
+    else:
+        q_class = torch.from_numpy(load_attitude_classes()).to(dev)
+        step = make_spn_eval_step(q_class, P, K, dist, SPN_NEIGHBORS, dev, fp16=True)
+        pose = lambda a: spn_pose(a[1], a[2], q_class, P, K, dist, SPN_NEIGHBORS)  # noqa: E731
     x = images_to_float(batch["image"])
 
     def forward():
         with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
             return model(x)
 
-    xc, yc = forward()
-    xc, yc = xc.float(), yc.float()
+    heads = [h.float() for h in forward()]
 
     def pose_and_score(*a):
-        q_pr, t_pr = keypoints_to_pose(*a[:3], P, K, dist)
+        q_pr, t_pr = pose(a)
         return speed_score_batched(t_pr, q_pr, a[4], a[3])
 
     geometry = CudaGraphed(pose_and_score)
-    geo_args = (xc, yc, batch["bbox"], batch["q_gt"], batch["t_gt"])
+    geo_args = (*heads, batch["bbox"], batch["q_gt"], batch["t_gt"])
     fwd_ms, geo_ms = time_ms(forward, reps=10), time_ms(lambda: geometry(*geo_args), reps=10)
     step_ms = time_ms(lambda: step(model, batch), reps=10)
     keys = ("err_q", "err_t", "speed_raw", "speed_mod", "acc")
@@ -693,26 +927,37 @@ def phase_eval(dev):
         torch.stack([out[k] for k in keys]).cpu()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
-    print(f"phase eval: eval step at batch {B}, {S}^2, bf16: device time forward "
-          f"{fwd_ms:.3f} ms + geometry (keypoints_to_pose + score, graph replay) "
+    geo = "keypoints_to_pose" if model_name == "krn" else "spn_pose"
+    print(f"phase {phase}: {model_name} eval step at batch {B}, {side}^2, bf16: device time "
+          f"forward {fwd_ms:.3f} ms + geometry ({geo} + score, graph replay) "
           f"{geo_ms:.3f} ms, whole step "
           f"{step_ms:.3f} ms = {B * 1000 / step_ms:.1f} img/s of device time; with its "
           f"readback on the host clock median {wall_ms:.3f} ms = {B * 1000 / wall_ms:.1f} "
           f"img/s (10 steps: {[round(w, 2) for w in walls]})", flush=True)
 
 
-def phase_resident(dev):
-    """Styled and plain train steps on one device-resident batch, in turns."""
+def phase_resident(dev, model_name: str):
+    """Styled and plain train steps of ``model_name`` on one device-resident
+    batch, in turns (host clock), and each one's device busy time
+    (torch.profiler)."""
+    import torch
+
     from speedplusbaseline_tpu_torch import profile_step
 
-    state, step, batch = profile_step.build(dev)
+    state, step, batch = profile_step.build(dev, model_name)
     out = {}
     for styled in (True, False, False, True):
         out.setdefault(styled, []).append(profile_step.time_step(state, step, batch, styled))
+    busy = {styled: profile_step.profile(state, step, batch, styled, table=False)
+            for styled in (True, False)}
+    side = profile_step.SIZE[model_name]
     for styled, v in out.items():
-        print(f"phase resident: {'styled' if styled else 'plain'} step "
-              f"{[round(x, 2) for x in v]} ms = {B * 1000 / min(v):.1f} img/s "
-              "(batch 48, 224^2, bf16, AdamW)", flush=True)
+        print(f"phase resident: {model_name} {'styled' if styled else 'plain'} step "
+              f"{[round(x, 2) for x in v]} ms = {B * 1000 / min(v):.1f} img/s on the host "
+              f"clock; device busy {busy[styled]:.2f} ms a step (batch {B}, {side}^2, bf16, "
+              "AdamW)", flush=True)
+    del state, step, batch
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -757,9 +1002,11 @@ def main() -> None:
     report = phase_kernels(dev)
     phase_ghiasi(dev)
     phase_geometry(dev)
-    launches = phase_main(dev)
-    phase_resident(dev)
-    phase_eval(dev)
+    phase_spn_geometry(dev)
+    launches = {"krn": phase_main(dev, "krn", 6), "spn": phase_main(dev, "spn", 4)}
+    for model in ("krn", "spn"):
+        phase_resident(dev, model)
+        phase_eval(dev, model)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -771,16 +1018,19 @@ def main() -> None:
     for name, (source, replaces) in src.items():
         r = report[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(n[name] for n in launches.values()),
+                        "launches_by_path": {m: n[name] for m, n in launches.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "bound_basis": r["bound_basis"],
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
-                        **({"sites": r["sites"]} if "sites" in r else {})})
-    print("kernel times are per styled step (B2: its six sites; B1: five calls), bf16; "
-          "B1's bound_ms counts its split-bf16 passes, bound_ms_bf16_tensor_core one "
-          "bf16 pass of its f32 work")
+                        "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
+    print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count both main "
+          "paths (6 KRN and 4 SPN styled steps), launches_by_path each; B1's bound_ms counts "
+          "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

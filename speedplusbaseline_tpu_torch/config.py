@@ -109,8 +109,6 @@ def default_cfg(**overrides) -> SimpleNamespace:
 
 # (flag, test on cfg, reason) for options the port does not serve yet.
 _UNPORTED = (
-    ("--model_name spn", lambda c: c.model_name != "krn",
-     "only KRN is ported; SPN is not"),
     ("--perform_dann", lambda c: c.dann, "DANN adaptation is not ported yet"),
     ("--num_devices", lambda c: c.num_devices != 0,
      "data parallelism over several devices is not ported yet"),
@@ -123,7 +121,12 @@ _UNPORTED = (
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a flag this port does not serve."""
+    """Raise ValueError for a model name that is neither krn nor spn, and
+    NotImplementedError for a flag this port does not serve."""
+    from .models.build import MODEL_NAMES
+
+    if cfg.model_name not in MODEL_NAMES:
+        raise ValueError(f"--model_name must be krn or spn, got {cfg.model_name!r}")
     for flag, test, reason in _UNPORTED:
         if test(cfg):
             raise NotImplementedError(f"{flag}: {reason}")

@@ -1,12 +1,15 @@
-"""KRN CSV-row dataset (a copy of ``speedplusbaseline_tpu/data/
-csv_dataset.py::KRNDataset``; reference Park2019KRNDataset.py).
+"""CSV-row datasets (a copy of ``speedplusbaseline_tpu/data/csv_dataset.py``
+``KRNDataset``, ``SPNDataset`` and ``build_dataset``; reference
+Park2019KRNDataset.py, SPNDataset.py).
 
 CSV schema (reference preprocess.py:104-114):
-  imagepath, xmin, xmax, ymin, ymax, q0..q3, t1..t3, kx1, ky1, ..., kxK, kyK
+  imagepath, xmin, xmax, ymin, ymax, q0..q3, t1..t3, then
+    KRN: kx1, ky1, ..., kxK, kyK           (pixel coords)
+    SPN: class_1..class_n, weight_1..weight_n
 with the image path relative to ``{dataroot}/{dataname}``. CSV selection
 (Park2019KRNDataset.py:52-66):
-  train + source  -> {train_domain}/splits_krn/{train_csv}
-  otherwise       -> {test_domain}/splits_krn/{test_csv}
+  train + source  -> {train_domain}/splits_{model_name}/{train_csv}
+  otherwise       -> {test_domain}/splits_{model_name}/{test_csv}
 
 Per-sample randomness is a Philox stream keyed by (seed, epoch, index), so
 any worker arrangement, and the JAX package, give the same crops.
@@ -20,7 +23,7 @@ from typing import Dict
 import numpy as np
 import pandas as pd
 
-from .transforms import random_crop
+from .transforms import random_crop, resize_crop
 
 logger = logging.getLogger(__name__)
 
@@ -39,28 +42,17 @@ def _imread(path: str) -> np.ndarray:
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
-class KRNDataset:
-    def __init__(self, cfg, is_train: bool = True, is_source: bool = True,
-                 load_labels: bool = True):
-        if cfg.model_name != "krn":
-            raise NotImplementedError(f"dataset for model {cfg.model_name!r} "
-                                      "is not ported")
-        if is_train and is_source and not load_labels:
-            raise ValueError("the labeled source stream needs load_labels=True")
-        if is_train and not is_source and load_labels:
-            raise ValueError("the DANN target stream is unlabeled")
+class _CSVDataset:
+    def __init__(self, cfg, is_train: bool, is_source: bool):
         self.is_train = is_train
-        self.load_labels = load_labels
         self.root = osp.join(cfg.dataroot, cfg.dataname)
         self.input_shape = tuple(cfg.input_shape)
         self.seed = cfg.seed
-        self.num_keypts = cfg.num_keypoints
         if is_train and is_source:
-            csvfile = osp.join(self.root, cfg.train_domain, "splits_krn",
-                               cfg.train_csv)
+            domain, csv = cfg.train_domain, cfg.train_csv
         else:
-            csvfile = osp.join(self.root, cfg.test_domain, "splits_krn",
-                               cfg.test_csv)
+            domain, csv = cfg.test_domain, cfg.test_csv
+        csvfile = osp.join(self.root, domain, "splits_" + cfg.model_name, csv)
         logger.info("%s from %s", "Training" if is_train else "Testing", csvfile)
         self.csv = pd.read_csv(csvfile, header=None)
 
@@ -71,10 +63,31 @@ class KRNDataset:
         return np.random.Generator(
             np.random.Philox(key=np.uint64([(self.seed << 20) + epoch, index])))
 
-    def __getitem__(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+    def _row(self, index: int):
+        """(csv row, image path, csv bbox float32 (4,))."""
         row = self.csv.iloc[index]
         imgpath = osp.join(self.root, str(row[0]).strip())
-        bbox = np.array(row[1:5], dtype=np.float32)
+        return row, imgpath, np.array(row[1:5], dtype=np.float32)
+
+    @staticmethod
+    def _eval_sample(crop, bbox, row) -> Dict[str, np.ndarray]:
+        return {"image": crop, "bbox": bbox, "q_gt": np.array(row[5:9], dtype=np.float32),
+                "t_gt": np.array(row[9:12], dtype=np.float32)}
+
+
+class KRNDataset(_CSVDataset):
+    def __init__(self, cfg, is_train: bool = True, is_source: bool = True,
+                 load_labels: bool = True):
+        if is_train and is_source and not load_labels:
+            raise ValueError("the labeled source stream needs load_labels=True")
+        if is_train and not is_source and load_labels:
+            raise ValueError("the DANN target stream is unlabeled")
+        super().__init__(cfg, is_train, is_source)
+        self.load_labels = load_labels
+        self.num_keypts = cfg.num_keypoints
+
+    def __getitem__(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        row, imgpath, bbox = self._row(index)
         if self.is_train and self.load_labels:
             keypts = np.array(row[12:12 + 2 * self.num_keypts], dtype=np.float32)
             keypts = np.reshape(keypts, (self.num_keypts, 2)).T  # (2, K)
@@ -88,6 +101,39 @@ class KRNDataset:
             if self.load_labels:
                 return {"image": crop, "keypts": keypts}
             return {"image": crop}
-        q_gt = np.array(row[5:9], dtype=np.float32)
-        t_gt = np.array(row[9:12], dtype=np.float32)
-        return {"image": crop, "bbox": bbox, "q_gt": q_gt, "t_gt": t_gt}
+        return self._eval_sample(crop, bbox, row)
+
+
+class SPNDataset(_CSVDataset):
+    """Train rows give n-hot ``y_classes`` (1/num_neighbors at each of the
+    row's classes) and ``y_weights`` (the row's weights there) over
+    num_classes (SPNDataset.py:83-94); eval rows give the csv bbox, which
+    the position solver takes, unclamped."""
+
+    def __init__(self, cfg, is_train: bool = True, is_source: bool = True):
+        super().__init__(cfg, is_train, is_source)
+        self.num_classes = cfg.num_classes
+        self.num_neighbors = cfg.num_neighbors
+
+    def __getitem__(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        row, imgpath, bbox = self._row(index)
+        crop, bbox = resize_crop(_imread(imgpath), bbox, self.input_shape)
+        if not self.is_train:
+            return self._eval_sample(crop, bbox, row)
+        n = self.num_neighbors
+        classes = np.array(row[12:12 + n], dtype=np.int32)
+        y_classes = np.zeros(self.num_classes, dtype=np.float32)
+        y_classes[classes] = 1.0 / n
+        y_weights = np.zeros(self.num_classes, dtype=np.float32)
+        y_weights[classes] = np.array(row[12 + n:12 + 2 * n], dtype=np.float32)
+        return {"image": crop, "y_classes": y_classes, "y_weights": y_weights}
+
+
+def build_dataset(cfg, is_train: bool = True, is_source: bool = True,
+                  load_labels: bool = True):
+    """Dataset factory (reference src/datasets/build.py:34-43)."""
+    if cfg.model_name == "krn":
+        return KRNDataset(cfg, is_train, is_source, load_labels)
+    if cfg.model_name == "spn":
+        return SPNDataset(cfg, is_train, is_source)
+    raise ValueError(f"unknown model_name: {cfg.model_name}")

@@ -119,12 +119,12 @@ def make_dataloader(cfg, device: torch.device, is_train: bool = True) -> DataLoa
     shuffled, the short last batch dropped. Eval (the test CSV):
     cfg.eval_batch_size, CSV order, half the workers, the short last batch
     kept (the reference evaluates batch 1; per-image results are the same)."""
-    from .csv_dataset import KRNDataset
+    from .csv_dataset import build_dataset
 
     if is_train:
-        return DataLoader(KRNDataset(cfg, is_train=True, is_source=True), cfg.batch_size,
+        return DataLoader(build_dataset(cfg, is_train=True, is_source=True), cfg.batch_size,
                           device, shuffle=True, num_workers=cfg.num_workers,
                           seed=cfg.seed)
-    return DataLoader(KRNDataset(cfg, is_train=False, is_source=False), cfg.eval_batch_size,
+    return DataLoader(build_dataset(cfg, is_train=False, is_source=False), cfg.eval_batch_size,
                       device, shuffle=False, num_workers=max(1, cfg.num_workers // 2),
                       seed=cfg.seed, drop_last=False)

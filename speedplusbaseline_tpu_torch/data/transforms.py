@@ -1,5 +1,5 @@
-"""Host-side crop/resize — reference transforms.py:112-164 semantics (a copy
-of ``speedplusbaseline_tpu/data/transforms.py``, KRN crop only).
+"""Host-side crop/resize — reference transforms.py:112-190 semantics (a copy
+of ``speedplusbaseline_tpu/data/transforms.py``: the KRN and SPN crops).
 
 Only the data-dependent RoI crop stays on the host (the crop box depends on
 the per-sample bbox, so shapes are dynamic); photometric/geometric
@@ -87,3 +87,16 @@ def random_crop(rng: np.random.Generator, image: np.ndarray, bbox, keypts,
     crop = image[cymin:cymax, cxmin:cxmax]
     crop = _resize(crop, out_shape)
     return np.ascontiguousarray(crop, dtype=np.uint8), new_bbox, keypts
+
+
+def resize_crop(image: np.ndarray, bbox, out_shape: Tuple[int, int]):
+    """SPN crop (reference ResizeCrop, transforms.py:166-190): clamp the bbox
+    to the frame, crop and resize, and return the ORIGINAL (unclamped) bbox,
+    which the SPN position solver takes. The crop stays uint8."""
+    org_h, org_w = image.shape[:2]
+    xmin, xmax, ymin, ymax = [float(v) for v in bbox]
+    cxmin, cxmax = max(0, int(xmin)), min(org_w, int(xmax))
+    cymin, cymax = max(0, int(ymin)), min(org_h, int(ymax))
+    crop = _resize(image[cymin:cymax, cxmin:cxmax], out_shape)
+    return (np.ascontiguousarray(crop, dtype=np.uint8),
+            np.asarray(bbox, dtype=np.float32))

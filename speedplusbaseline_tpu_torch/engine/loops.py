@@ -13,7 +13,10 @@ import torch
 
 from ..io_utils.meters import AverageMeter, report_progress
 
-_NAMES = ("loss_x", "loss_y")
+
+def _meter_names(model_name: str):
+    """The loss terms a train step returns (reference trainer.py meters)."""
+    return ("loss_c", "loss_r") if model_name == "spn" else ("loss_x", "loss_y")
 
 
 def style_gate(seed: int, epoch: int) -> np.random.Generator:
@@ -28,9 +31,11 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
                 styled: bool = False, lr_value: float = 0.0) -> List[dict]:
     """One training epoch. ``styled`` says whether a style augmentor exists;
     each step is then restyled when the gate draws < texture_ratio.
-    Returns one record per step: {step, styled, loss_x, loss_y, ms}."""
+    Returns one record per step: {step, styled, ms} and the loss terms
+    (loss_x, loss_y for KRN; loss_c, loss_r for SPN)."""
+    names = _meter_names(cfg.model_name)
     time_meter = AverageMeter("ms")
-    meters = {n: AverageMeter("-") for n in _NAMES}
+    meters = {n: AverageMeter("-") for n in names}
     loader.set_epoch(epoch)
     n_batches = len(loader)
     gate = style_gate(cfg.seed, epoch)
@@ -42,7 +47,7 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
         idx, B, sm, ms, was_styled = pending
         vals = {k: float(v) for k, v in sm.items()}
         time_meter.update(ms, B)
-        for name in _NAMES:
+        for name in names:
             meters[name].update(vals[name], B)
         records.append({"step": idx, "styled": was_styled, "ms": ms, **vals})
         report_progress(epoch=epoch, lr=lr_value, epoch_iter=idx + 1,
@@ -66,7 +71,7 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
         _flush(pending)
 
     if writer is not None:
-        for name in _NAMES:
+        for name in names:
             writer.add_scalar(f"train/{name}", meters[name].avg, epoch)
     return records
 

@@ -16,7 +16,8 @@ the JAX package do (cfg.momentum doubles as beta1 / the RMS decay):
 KRN clips by global norm 1.0 before the step (trainer.py:97).
 ``clip_grad_norm_`` scales by max_norm / (norm + 1e-6); optax by
 max_norm / norm. The relative difference is 1e-6 / norm, below f32 noise at
-any norm this clip acts on.
+any norm this clip acts on. SPN clips each gradient element to [-1, 1]
+(``clip_grad_value_``, trainer.py:184; optax ``clip(1.0)``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,15 @@ from typing import Iterable
 import torch
 
 KRN_CLIP_NORM = 1.0
+SPN_CLIP_VALUE = 1.0
+
+
+def clip_gradients(model_name: str, params: Iterable[torch.nn.Parameter]) -> None:
+    """The model's clip, in place, between backward and the step."""
+    if model_name == "spn":
+        torch.nn.utils.clip_grad_value_(params, SPN_CLIP_VALUE)
+    else:
+        torch.nn.utils.clip_grad_norm_(params, KRN_CLIP_NORM)
 
 
 def step_lr_schedule(base_lr: float, decay_alpha: float, decay_step: int,

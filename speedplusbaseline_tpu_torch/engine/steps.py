@@ -1,20 +1,24 @@
-"""KRN train and eval steps (counterpart of ``speedplusbaseline_tpu/engine/
-steps.py::make_krn_train_step`` and ``make_krn_eval_step``; reference
-trainer.py:41-112, inference.py:43-144).
+"""KRN and SPN train and eval steps (counterpart of ``speedplusbaseline_tpu/
+engine/steps.py``: ``make_{krn,spn}_train_step``, ``make_{krn,spn}_eval_step``;
+reference trainer.py:41-199, inference.py:43-225).
 
-One step: uint8 -> [0, 1] on the device, the photometric augs, the Ghiasi
+A KRN step: uint8 -> [0, 1] on the device, the photometric augs, the Ghiasi
 restyle when the host gate says so, the forward, ``krn_loss``, backward,
-clip by global norm 1.0 and the optimizer step. ``--use_fp16`` means a
+clip by global norm 1.0 and the optimizer step. An SPN step has no
+photometric augs: the restyle, the forward with dropout, ``spn_loss`` in
+f32, backward, clip by value 1.0 and the step. ``--use_fp16`` means a
 bfloat16 autocast around the forward with f32 parameters and no GradScaler,
 as the JAX package's bf16 compute; the restyle runs in the style
 augmentor's own dtype.
 
-The eval step runs the forward in eval mode under ``torch.inference_mode``
-(bf16 autocast with ``--use_fp16``), then the pose (EPnP on the RoI-
-denormalized keypoints) and the SPEED scores in f32 on the same device,
-batched, with no host sync. The pose and score are thousands of small
-kernels whose launches, not their work, set the time; with no sync in them
-they are captured once per batch size as a CUDA graph and replayed.
+The eval steps run the forward in eval mode under ``torch.inference_mode``
+(bf16 autocast with ``--use_fp16``), then the pose and the SPEED scores in
+f32 on the same device, batched, with no host sync: KRN by EPnP on the RoI-
+denormalized keypoints; SPN by top-k over the weight head, a softmax, the
+weighted mean of the class quaternions and the Gauss-Newton position from
+the csv bbox. The pose and score are thousands of small kernels whose
+launches, not their work, set the time; with no sync in them they are
+captured once per batch size as a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ from typing import Dict, Optional
 import torch
 
 from ..augment.photometric import apply_augment, draw_augment
-from ..geometry import keypoints_to_pose
+from ..geometry import (compute_position_spn_batched, f32_math, keypoints_to_pose,
+                        weighted_mean_quaternion)
 from ..metrics import speed_score_batched
 from ..models.krn import krn_loss
-from .optim import KRN_CLIP_NORM
+from ..models.spn import spn_loss
+from .optim import clip_gradients
 from .state import TrainState
 
 
@@ -51,15 +57,20 @@ def krn_step(state: TrainState, images: torch.Tensor, keypts: torch.Tensor,
     if style_aug is not None:
         x = style_aug(x, generator, z).to(x.dtype)
 
-    model, opt = state.model, state.optimizer
+    model = state.model
     model.train()
     with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
         xc, yc = model(x)
     loss, sm = krn_loss(xc.float(), yc.float(), kp)
-    opt.zero_grad(set_to_none=True)
+    return _update(state, "krn", loss, sm)
+
+
+def _update(state: TrainState, model_name: str, loss, sm) -> Dict[str, torch.Tensor]:
+    """Backward, the model's clip, the optimizer step; the detached loss terms."""
+    state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    torch.nn.utils.clip_grad_norm_(model.parameters(), KRN_CLIP_NORM)
-    opt.step()
+    clip_gradients(model_name, state.model.parameters())
+    state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in sm.items()}
 
@@ -81,6 +92,45 @@ def make_krn_train_step(cfg, device: torch.device, style_aug=None):
                         style_aug if styled else None, gen)
 
     return train_step
+
+
+def spn_step(state: TrainState, images: torch.Tensor, y_classes: torch.Tensor,
+             y_weights: torch.Tensor, fp16: bool, style_aug=None,
+             generator: Optional[torch.Generator] = None,
+             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One SPN step; ``style_aug=None`` is the plain step. The restyle draws
+    its embedding normals (or takes ``z``) and then the forward its dropout
+    masks from ``generator``. Returns {loss_c, loss_r} (device scalars,
+    detached)."""
+    x = images_to_float(images)
+    if style_aug is not None:
+        x = style_aug(x, generator, z).to(x.dtype)
+    model = state.model
+    model.train()
+    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
+        classes, weights = model(x, generator)
+    loss, sm = spn_loss(classes.float(), weights.float(), y_classes.float(),
+                        y_weights.float())
+    return _update(state, "spn", loss, sm)
+
+
+def make_spn_train_step(cfg, device: torch.device, style_aug=None):
+    """Returns fn(state, batch, styled) -> {loss_c, loss_r}; the generator is
+    reseeded from (seed, step) as in make_krn_train_step."""
+    gen = torch.Generator(device=device)
+
+    def train_step(state: TrainState, batch, styled: bool):
+        gen.manual_seed((cfg.seed << 32) + state.step)
+        return spn_step(state, batch["image"], batch["y_classes"], batch["y_weights"],
+                        cfg.fp16, style_aug if styled else None, gen)
+
+    return train_step
+
+
+def make_train_step(cfg, device: torch.device, style_aug=None):
+    """The train step of ``cfg.model_name``."""
+    make = make_spn_train_step if cfg.model_name == "spn" else make_krn_train_step
+    return make(cfg, device, style_aug)
 
 
 class CudaGraphed:
@@ -135,12 +185,56 @@ def make_krn_eval_step(corners3d, camera_matrix, dist_coeffs, device: torch.devi
     pose_and_score = CudaGraphed(pose_and_score)
 
     def eval_step(model, batch):
-        model.eval()
-        with torch.inference_mode():
-            x = images_to_float(batch["image"])
-            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
-                xc, yc = model(x)
-            return pose_and_score(xc.float(), yc.float(), batch["bbox"].float(),
-                                  batch["q_gt"].float(), batch["t_gt"].float())
+        xc, yc = _eval_forward(model, batch, fp16)
+        return pose_and_score(xc.float(), yc.float(), batch["bbox"].float(),
+                              batch["q_gt"].float(), batch["t_gt"].float())
+
+    return eval_step
+
+
+def _eval_forward(model, batch, fp16: bool):
+    """The model's outputs on the batch, in eval mode under inference_mode
+    (bf16 autocast with ``fp16``)."""
+    model.eval()
+    with torch.inference_mode():
+        x = images_to_float(batch["image"])
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
+            return model(x)
+
+
+@f32_math()
+def spn_pose(weights, bbox, q_class, corners3d, camera_matrix, dist_coeffs,
+             num_neighbors: int):
+    """SPN pose from the weight head (B, num_classes): the top-k classes, a
+    softmax over their weights, the weighted mean of their quaternions, and
+    the Gauss-Newton position from ``bbox`` (B, 4). Returns q (B, 4), t (B, 3)."""
+    top_w, top_c = torch.topk(weights, num_neighbors, dim=1)
+    top_w = torch.softmax(top_w, dim=1)
+    qs = q_class.index_select(0, top_c.reshape(-1)).reshape(*top_c.shape, 4)
+    q_pr = weighted_mean_quaternion(qs, top_w)
+    return q_pr, compute_position_spn_batched(q_pr, bbox, corners3d, camera_matrix,
+                                              dist_coeffs)
+
+
+def make_spn_eval_step(q_class, corners3d, camera_matrix, dist_coeffs, num_neighbors: int,
+                       device: torch.device, fp16: bool = False):
+    """Returns fn(model, batch) -> the dict of make_krn_eval_step. ``bbox``
+    is the csv box (SPNDataset returns it unclamped); ``q_class`` holds the
+    (num_classes, 4) attitude-class quaternions."""
+    q_class, corners3d, camera_matrix, dist_coeffs = (
+        torch.as_tensor(a, dtype=torch.float32).to(device)
+        for a in (q_class, corners3d, camera_matrix, dist_coeffs))
+
+    def pose_and_score(weights, bbox, q_gt, t_gt):
+        q_pr, t_pr = spn_pose(weights, bbox, q_class, corners3d, camera_matrix, dist_coeffs,
+                              num_neighbors)
+        return {"q_pr": q_pr, "t_pr": t_pr, **speed_score_batched(t_pr, q_pr, t_gt, q_gt)}
+
+    pose_and_score = CudaGraphed(pose_and_score)
+
+    def eval_step(model, batch):
+        _, weights = _eval_forward(model, batch, fp16)
+        return pose_and_score(weights.float(), batch["bbox"].float(), batch["q_gt"].float(),
+                              batch["t_gt"].float())
 
     return eval_step

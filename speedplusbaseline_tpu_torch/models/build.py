@@ -1,0 +1,31 @@
+"""Model factory (counterpart of ``speedplusbaseline_tpu/models/build.py``;
+reference src/nets/build.py:39-58). ``--use_fp16`` is a bf16 autocast around
+the forward in the steps, so the models keep f32 parameters either way."""
+from __future__ import annotations
+
+import logging
+
+import torch.nn as nn
+
+from .krn import KeypointRegressionNet
+from .spn import SpacecraftPoseNet
+
+logger = logging.getLogger(__name__)
+
+MODEL_NAMES = ("krn", "spn")
+
+
+def get_model(cfg) -> nn.Module:
+    """KRN or SPN from ``cfg.model_name``, sized by ``cfg.input_shape``."""
+    if cfg.model_name not in MODEL_NAMES:
+        raise ValueError(f"unknown model_name {cfg.model_name!r}; expected one of "
+                         f"{MODEL_NAMES}")
+    if cfg.dann:
+        raise NotImplementedError("--perform_dann: DANN adaptation is not ported yet")
+    if cfg.model_name == "krn":
+        model = KeypointRegressionNet(cfg.num_keypoints, cfg.input_shape)
+    else:
+        model = SpacecraftPoseNet(cfg.num_classes, input_shape=cfg.input_shape)
+    n = sum(p.numel() for p in model.parameters())
+    logger.info("%s created; %s parameters", cfg.model_name.upper(), f"{n:,}")
+    return model

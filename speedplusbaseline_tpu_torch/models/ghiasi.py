@@ -137,9 +137,12 @@ class Ghiasi(nn.Module):
         self.layer10 = UpsampleConvInRelu(32, 3, 9, use_relu=False)
 
     def forward(self, x, styles):
-        """x: (B, 3, H, W) in [0, 1]; styles: (B, 100). H, W divisible by 4.
-        Returns (B, 3, H, W) in ``self.dtype``. Runs outside any autocast
-        region: its dtypes are set here, as the flax module sets them."""
+        """x: (B, 3, H, W) in [0, 1]; styles: (B, 100). Returns
+        (B, 3, 4 ceil(H/4), 4 ceil(W/4)) in ``self.dtype``: the two stride-2
+        convs round odd sides up and the two upsamples double them, so SPN's
+        227^2 comes out 228^2, as in the JAX package's plain lowering and the
+        reference. Runs outside any autocast region: its dtypes are set here,
+        as the flax module sets them."""
         with torch.autocast(x.device.type, enabled=False):
             x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
             styles = styles.float()

@@ -109,3 +109,24 @@ class RouterV2(nn.Module):
     def forward(self, x1, x2):
         x2 = space_to_depth(self.conv(x2), self.stride)
         return torch.cat([x2, x1], dim=1)
+
+
+class LocalResponseNorm(nn.Module):
+    """``torch.nn.LocalResponseNorm`` semantics (spn.py:63,68), computed in
+    f32 and cast back to x's dtype, as the flax module does: the channel axis
+    is padded with size//2 leading and (size-1)//2 trailing zeros, and the
+    denominator is (k + alpha * mean_window(x^2)) ** beta. Written out rather
+    than ``F.local_response_norm``, whose ``avg_pool3d`` would run in bf16
+    under the autocast."""
+
+    def __init__(self, size: int = 2, alpha: float = 2e-5, beta: float = 0.75,
+                 k: float = 1.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        C = x.shape[1]
+        sq = F.pad(xf.square(), (0, 0, 0, 0, self.size // 2, (self.size - 1) // 2))
+        mean = sum(sq[:, i:i + C] for i in range(self.size)) / self.size
+        return (xf / torch.pow(self.k + self.alpha * mean, self.beta)).to(x.dtype)

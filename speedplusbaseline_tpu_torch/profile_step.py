@@ -1,16 +1,18 @@
-"""Time and profile the KRN train step on one device-resident batch.
+"""Time and profile the KRN or SPN train step on one device-resident batch.
 
-    python -m speedplusbaseline_tpu_torch.profile_step
+    python -m speedplusbaseline_tpu_torch.profile_step [krn|spn]
 
-Builds the KRN + style augmentor of the README recipe (batch 48, 224^2,
-AdamW, bf16 autocast, the Ghiasi asset), times the styled and the plain step in turns (styled,
-plain, plain, styled; host clock around ``torch.cuda.synchronize()``), then
+Builds the model + style augmentor of the README recipe (batch 48, AdamW,
+bf16 autocast, the Ghiasi asset; KRN at 224^2, SPN at 227^2 with 5000
+classes), times the styled and the plain step in turns (styled, plain,
+plain, styled; host clock around ``torch.cuda.synchronize()``), then
 profiles a few steps of each with ``torch.profiler`` and prints the kernels
 by device time and the device's busy share of the window. Needs a GPU.
 """
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import numpy as np
@@ -20,26 +22,39 @@ from .augment.styleaug import StyleAugmentor, load_ghiasi_params, load_style_sta
 from .config import default_cfg
 from .engine.optim import build_optimizer
 from .engine.state import TrainState
-from .engine.steps import make_krn_train_step
+from .engine.steps import make_train_step
 from .io_utils import default_assets_dir
-from .models.krn import KeypointRegressionNet
+from .models.build import get_model
 
-BATCH, SIZE, REPS = 48, 224, 10
+BATCH, REPS = 48, 10
+SIZE = {"krn": 224, "spn": 227}
+SPN_CLASSES, SPN_NEIGHBORS = 5000, 5
 
 
-def build(dev: torch.device):
-    """(state, train_step, batch) for the styled KRN recipe."""
-    cfg = default_cfg(optimizer="adamw", weight_decay=0.01, fp16=True,
-                      batch_size=BATCH, input_shape=(SIZE, SIZE))
-    model = KeypointRegressionNet(11, (SIZE, SIZE)).to(dev, memory_format=torch.channels_last)
+def build(dev: torch.device, model_name: str = "krn"):
+    """(state, train_step, batch) for the styled recipe of ``model_name``."""
+    S = SIZE[model_name]
+    cfg = default_cfg(model_name=model_name, optimizer="adamw", weight_decay=0.01, fp16=True,
+                      batch_size=BATCH, input_shape=(S, S), num_classes=SPN_CLASSES)
+    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
     state = TrainState(model, build_optimizer(cfg, model.parameters()))
     aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.bfloat16, dev)
     aug.ghiasi.load_state_dict(load_ghiasi_params(
         os.path.join(default_assets_dir(), "ghiasi_params.msgpack")))
     rs = np.random.RandomState(0)
-    data = {"image": torch.from_numpy(rs.randint(0, 256, (BATCH, SIZE, SIZE, 3), np.uint8)),
-            "keypts": torch.from_numpy(rs.rand(BATCH, 2, 11).astype(np.float32))}
-    return state, make_krn_train_step(cfg, dev, aug), {k: v.to(dev) for k, v in data.items()}
+    data = {"image": rs.randint(0, 256, (BATCH, S, S, 3), np.uint8)}
+    if model_name == "krn":
+        data["keypts"] = rs.rand(BATCH, 2, 11).astype(np.float32)
+    else:  # n-hot targets over SPN_NEIGHBORS classes, as SPNDataset gives them
+        y_classes = np.zeros((BATCH, SPN_CLASSES), np.float32)
+        y_weights = np.zeros((BATCH, SPN_CLASSES), np.float32)
+        for i in range(BATCH):
+            idx = rs.choice(SPN_CLASSES, SPN_NEIGHBORS, replace=False)
+            y_classes[i, idx] = 1.0 / SPN_NEIGHBORS
+            y_weights[i, idx] = rs.dirichlet(np.ones(SPN_NEIGHBORS))
+        data.update(y_classes=y_classes, y_weights=y_weights)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return state, make_train_step(cfg, dev, aug), batch
 
 
 def time_step(state, step, batch, styled: bool) -> float:
@@ -51,12 +66,16 @@ def time_step(state, step, batch, styled: bool) -> float:
     for _ in range(REPS):
         sm = step(state, batch, styled)
     torch.cuda.synchronize()
-    if not np.isfinite(float(sm["loss_x"])):
+    if not all(np.isfinite(float(v)) for v in sm.values()):
         raise RuntimeError("non-finite loss")
     return (time.perf_counter() - t0) * 1000 / REPS
 
 
-def profile(state, step, batch, styled: bool, steps: int = 3, rows: int = 15) -> None:
+def profile(state, step, batch, styled: bool, steps: int = 3, rows: int = 15,
+            table: bool = True) -> float:
+    """Profile ``steps`` steps; print the device's busy time per step and
+    share of the window (and, with ``table``, the kernels by device time);
+    return the busy ms per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -75,19 +94,24 @@ def profile(state, step, batch, styled: bool, steps: int = 3, rows: int = 15) ->
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     print(f"{'styled' if styled else 'plain'} step, {steps} steps profiled: device busy "
           f"{busy_us / 1000 / steps:.2f} ms per step, {100 * busy_us / wall_us:.1f}% of "
-          f"the {wall_us / 1000:.2f} ms window (the window includes profiler overhead)")
-    print(events.table(sort_by="self_device_time_total", row_limit=rows))
+          f"the {wall_us / 1000:.2f} ms window (the window includes profiler overhead)",
+          flush=True)
+    if table:
+        print(events.table(sort_by="self_device_time_total", row_limit=rows))
+    return busy_us / 1000 / steps
 
 
-def main() -> None:
+def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA GPU")
+    args = sys.argv[1:] if argv is None else list(argv)
+    model_name = args[0] if args else "krn"
     dev = torch.device("cuda", 0)
-    state, step, batch = build(dev)
+    state, step, batch = build(dev, model_name)
     for styled in (True, False, False, True):
         ms = time_step(state, step, batch, styled)
-        print(f"{'styled' if styled else 'plain'} step: {ms:.3f} ms = "
-              f"{BATCH * 1000 / ms:.1f} img/s (batch {BATCH}, {SIZE}^2)",
+        print(f"{model_name} {'styled' if styled else 'plain'} step: {ms:.3f} ms = "
+              f"{BATCH * 1000 / ms:.1f} img/s (batch {BATCH}, {SIZE[model_name]}^2)",
               flush=True)
     profile(state, step, batch, True)
     profile(state, step, batch, False)

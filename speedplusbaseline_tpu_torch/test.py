@@ -1,7 +1,8 @@
-"""KRN evaluation CLI: ``python -m speedplusbaseline_tpu_torch.test``.
+"""KRN and SPN evaluation CLI: ``python -m speedplusbaseline_tpu_torch.test``.
 
 The counterpart of the JAX package's root ``test.py`` (reference test.py):
-build KRN, load ``--pretrained``, validate over the test CSV, write the
+build the model of ``--model_name``, load ``--pretrained``, validate over the
+test CSV (SPN also loads ``--attitude_class``), write the
 per-image dumps (err_q.txt, err_t.txt, speed_raw.txt, speed_mod.txt) to
 ``--logdir`` and the four averaged meters to ``$logdir/$resultfn``.
 
@@ -28,15 +29,15 @@ from .config import check_ported, parse_cfg, resolve_device
 from .convert import flax_to_state_dict, read_flax_msgpack
 from .engine.loops import run_validation
 from .io_utils import AverageMeter, setup_logger
-from .models.krn import KeypointRegressionNet
+from .models.build import get_model
 from .train import eval_setup
 
 logger = logging.getLogger(__name__)
 
 
 def load_pretrained(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
-    """A KRN state_dict from a port ``.pt`` or a JAX ``.msgpack`` checkpoint,
-    each either the bare model or the full train state."""
+    """A model state_dict from a port ``.pt`` or a JAX ``.msgpack``
+    checkpoint, each either the bare model or the full train state."""
     if not osp.exists(path):
         raise FileNotFoundError(f"--pretrained checkpoint not found: {path}")
     if path.endswith(".msgpack"):
@@ -59,7 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, AverageMeter]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(cfg.seed)
 
-    model = KeypointRegressionNet(cfg.num_keypoints, cfg.input_shape)
+    model = get_model(cfg)
     if cfg.pretrained:
         model.load_state_dict(load_pretrained(cfg.pretrained, device), strict=True)
         logger.info("Model loaded from %s", cfg.pretrained)

@@ -1,13 +1,15 @@
-"""KRN training CLI: ``python -m speedplusbaseline_tpu_torch.train``.
+"""KRN and SPN training CLI: ``python -m speedplusbaseline_tpu_torch.train``.
 
 Follows the JAX package's ``train.py`` (reference train.py:49-158): seed,
-savedir/logdir, config.txt snapshot, model + optional StyleAugmentor,
-optimizer + StepLR, auto-resume, loaders, then per epoch train -> validate
-every ``--test_epoch`` epochs -> checkpoint. Unlike the JAX trainer, the
-test loader, the Tango points and ``camera.json`` are read only when
-validation is on (``--test_epoch > 0``), so a run without validation needs
-no test split. SPN, DANN and multi-device runs are not ported yet; their
-flags raise ``NotImplementedError`` (config.check_ported).
+savedir/logdir, config.txt snapshot, model (``--model_name krn|spn``) +
+optional StyleAugmentor, optimizer + StepLR, auto-resume, loaders, then per
+epoch train -> validate every ``--test_epoch`` epochs -> checkpoint. SPN
+loads the attitude classes (``--attitude_class``), whose count must equal
+``--num_classes``. Unlike the JAX trainer, the test loader, the Tango points
+and ``camera.json`` are read only when validation is on (``--test_epoch >
+0``), so a run without validation needs no test split. DANN and
+multi-device runs are not ported yet; their flags raise
+``NotImplementedError`` (config.check_ported).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -29,12 +31,12 @@ from .data.loader import make_dataloader
 from .engine.loops import run_validation, train_epoch
 from .engine.optim import build_optimizer, set_lr, step_lr_schedule
 from .engine.state import TrainState
-from .engine.steps import make_krn_eval_step, make_krn_train_step
+from .engine.steps import make_krn_eval_step, make_spn_eval_step, make_train_step
 from .io_utils import (SummaryWriter, checkpoint_exists, default_assets_dir,
-                       load_camera_intrinsics, load_checkpoint, load_tango_3d_keypoints,
-                       save_checkpoint, setup_logger)
+                       load_attitude_classes, load_camera_intrinsics, load_checkpoint,
+                       load_tango_3d_keypoints, save_checkpoint, setup_logger)
 from .io_utils.checkpoint import CKPT_NAME
-from .models.krn import KeypointRegressionNet
+from .models.build import get_model
 
 logger = logging.getLogger(__name__)
 
@@ -60,19 +62,34 @@ def _style_augmentor(cfg, device: torch.device) -> StyleAugmentor:
     return aug
 
 
+def attitude_classes(cfg):
+    """SPN's (num_classes, 4) class quaternions from ``--attitude_class``;
+    their count must be ``--num_classes`` (the JAX train.py:145-147)."""
+    q_class = load_attitude_classes(cfg.attitude_class)
+    if q_class.shape[0] != cfg.num_classes:
+        raise ValueError(f"--attitude_class holds {q_class.shape[0]} classes, "
+                         f"--num_classes is {cfg.num_classes}")
+    return q_class
+
+
 def eval_setup(cfg, device: torch.device):
-    """(test loader, KRN eval step) from the test CSV, the Tango points and
-    ``{dataroot}/{dataname}/camera.json``."""
+    """(test loader, eval step of cfg.model_name) from the test CSV, the
+    Tango points, ``{dataroot}/{dataname}/camera.json`` and, for SPN, the
+    attitude classes."""
     corners3d = load_tango_3d_keypoints(cfg.keypts_3d_model)
     camera_matrix, dist_coeffs = load_camera_intrinsics(
         osp.join(cfg.dataroot, cfg.dataname, "camera.json"))
-    return (make_dataloader(cfg, device, is_train=False),
-            make_krn_eval_step(corners3d, camera_matrix, dist_coeffs, device, cfg.fp16))
+    if cfg.model_name == "spn":
+        step = make_spn_eval_step(attitude_classes(cfg), corners3d, camera_matrix,
+                                  dist_coeffs, cfg.num_neighbors, device, cfg.fp16)
+    else:
+        step = make_krn_eval_step(corners3d, camera_matrix, dist_coeffs, device, cfg.fp16)
+    return make_dataloader(cfg, device, is_train=False), step
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
-    """Train; returns one record per step ({epoch, step, styled, loss_x,
-    loss_y, ms})."""
+    """Train; returns one record per step ({epoch, step, styled, ms} and the
+    loss terms: loss_x, loss_y for KRN, loss_c, loss_r for SPN)."""
     cfg = parse_cfg(argv)
     check_ported(cfg)
     device = resolve_device(cfg)
@@ -92,10 +109,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         check_resume_compat(cfg, cfg.savedir)
     save_cfg(cfg, cfg.savedir)
 
-    model = KeypointRegressionNet(cfg.num_keypoints, cfg.input_shape)
-    model = model.to(device, memory_format=torch.channels_last)
-    n = sum(p.numel() for p in model.parameters())
-    logger.info("KRN created; %s parameters", f"{n:,}")
+    model = get_model(cfg).to(device, memory_format=torch.channels_last)
+    if cfg.model_name == "spn":
+        attitude_classes(cfg)  # fail before training, as the JAX trainer does
 
     style_aug = _style_augmentor(cfg, device) if cfg.randomize_texture else None
 
@@ -112,7 +128,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     if cfg.fp16:
         logger.info("bf16 autocast enabled (f32 parameters, no loss scaling)")
 
-    train_step = make_krn_train_step(cfg, device, style_aug)
+    train_step = make_train_step(cfg, device, style_aug)
     validate = cfg.test_epoch > 0
     if validate:
         test_loader, eval_step = eval_setup(cfg, device)

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels against their plain versions on the card,
-and the batched EPnP on the card against the CPU.
+"""The hand-written CUDA kernels against their plain versions on the card
+(at the KRN and SPN paths' shapes), and the batched EPnP and SPN's pose on
+the card against the CPU.
 
 Marked ``cuda``: each test skips on a machine without a GPU (the CPU tests
 reach only the plain versions). On the card, ``python -m pytest
@@ -10,13 +11,13 @@ module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 + 1e-4 |ref| (B1,
 differently). EPnP: card against CPU f32 on 1-px-noisy keypoints, q within
 1e-4 after sign alignment and t within 1e-3 m (the two refinements stop at
 one minimum, f32 rounding apart), with no host sync in the call, and its
-CUDA graph replay equal to the eager call.
+CUDA graph replay equal to the eager call; SPN's pose the same way.
 """
 import numpy as np
 import pytest
 import torch
 
-from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed
+from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed, spn_pose
 from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose, project_keypoints
 from speedplusbaseline_tpu_torch.ops import _build
 from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
@@ -55,6 +56,13 @@ B2_PATHS = {(2, 8, 8, 32): ("cluster", "cluster"), (3, 9, 7, 3): ("two_pass", "t
             (48, 224, 224, 3): ("cluster", "cluster"),
             (2, 236, 236, 32): ("two_pass", "cluster"),
             (2, 237, 237, 32): ("two_pass", "two_pass")}
+# The SPN path's six bf16 sites at batch 48 (227 -> 114 -> 57 -> 114 -> 228)
+# -> plan()'s path. 227^2 x 32 goes two-pass: its 3.3 MB slab (2^6 * 227^2
+# bytes) splits on 16-byte bounds only into 1, 2 or 4 ranges, none of which
+# fits one block; 228^2 x 32 takes 16 ranges.
+SPN_B2_SITES = {(48, 227, 227, 32): "two_pass", (48, 114, 114, 64): "cluster",
+                (48, 57, 57, 128): "cluster", (48, 228, 228, 32): "cluster",
+                (48, 228, 228, 3): "cluster"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -75,9 +83,26 @@ def test_instance_norm_film_kernel(dev, dtype, shape):
     assert path_calls[path] == on_path + 3
 
 
+@pytest.mark.parametrize("shape", list(SPN_B2_SITES))
+def test_instance_norm_film_spn_sites(dev, shape):
+    """Each SPN site in bf16 runs the path plan() gives it, on the card's own
+    cluster occupancy too, and matches the plain version."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
+    gam = torch.randn(shape[0], shape[3], device=dev, generator=g)
+    bet = torch.randn(shape[0], shape[3], device=dev, generator=g)
+    path = plan_on_card(shape, torch.bfloat16, dev).path
+    assert path == SPN_B2_SITES[shape]
+    on_path = path_calls[path]
+    _check(instance_norm_film(x, gam, bet, relu=True),
+           instance_norm_film_plain(x, gam, bet, relu=True), TOL[torch.bfloat16])
+    assert path_calls[path] == on_path + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 8, 128), (2, 9, 9, 128), (1, 13, 6, 40),
-                                   (48, 56, 56, 128), (3, 2, 5, 16), (1, 9, 9, 136)])
+                                   (48, 56, 56, 128), (48, 57, 57, 128), (3, 2, 5, 16),
+                                   (1, 9, 9, 136)])
 def test_resblock_kernel(dev, dtype, shape):
     g = torch.Generator(device=dev).manual_seed(1)
     C = shape[3]
@@ -146,6 +171,47 @@ def test_keypoints_to_pose_on_card_matches_cpu(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     graphed = CudaGraphed(lambda *a: dict(zip("qt", keypoints_to_pose(*a))))
+    for _ in range(2):  # capture, then replay
+        out = graphed(*on_card)
+        assert torch.equal(out["q"], q_gpu) and torch.equal(out["t"], t_gpu)
+    q_gpu, t_gpu = q_gpu.cpu(), t_gpu.cpu()
+    sign = torch.sign((q_gpu * q_cpu).sum(1, keepdim=True))
+    assert torch.isfinite(q_gpu).all() and torch.isfinite(t_gpu).all()
+    assert (q_gpu * sign - q_cpu).abs().max() <= 1e-4
+    assert (t_gpu - t_cpu).abs().max() <= 1e-3
+
+
+def test_spn_pose_on_card_matches_cpu(dev):
+    """Top-k, softmax, weighted quaternion mean and Gauss-Newton position at
+    batch 48 on the card: no host sync, the graph replay equals the eager
+    call, and q within 1e-4, t within 1e-3 m of the CPU."""
+    rs = np.random.RandomState(1)
+    B, NC = 48, 500
+    fx = 0.0176 / 5.86e-6
+    K = torch.tensor([[fx, 0, 960], [0, fx, 600], [0, 0, 1.0]])
+    dist = torch.tensor([-0.2238, 0.5141, -6.65e-4, -2.14e-4, -0.1312])
+    P = torch.from_numpy(rs.uniform(-0.4, 0.4, (11, 3)).astype(np.float32))
+    q_class = torch.from_numpy(rs.randn(NC, 4).astype(np.float32))
+    q_class = q_class / q_class.norm(dim=1, keepdim=True)
+    q = q_class[:B]
+    t = torch.from_numpy(np.stack([rs.uniform(-0.6, 0.6, B), rs.uniform(-0.4, 0.4, B),
+                                   rs.uniform(3.5, 9.0, B)], 1).astype(np.float32))
+    uv = project_keypoints(q, t, K, dist, P)
+    bbox = torch.stack([uv[:, 0].amin(1), uv[:, 0].amax(1), uv[:, 1].amin(1),
+                        uv[:, 1].amax(1)], 1)
+    logits = torch.from_numpy(rs.randn(B, NC).astype(np.float32))
+    logits[torch.arange(B), torch.arange(B)] += 8.0  # the true class on top
+    args = (logits, bbox, q_class, P, K, dist)
+    q_cpu, t_cpu = spn_pose(*args, 5)
+    on_card = [a.to(dev) for a in args]
+    spn_pose(*on_card, 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q_gpu, t_gpu = spn_pose(*on_card, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graphed = CudaGraphed(lambda *a: dict(zip("qt", spn_pose(*a, 5))))
     for _ in range(2):  # capture, then replay
         out = graphed(*on_card)
         assert torch.equal(out["q"], q_gpu) and torch.equal(out["t"], t_gpu)

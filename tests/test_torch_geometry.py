@@ -285,6 +285,8 @@ def _entry_points(camera, tango_points, poses):
         "epnp": lambda: torch.cat(tg.epnp(P, uv[0], K, dist)),
         "epnp_batched": lambda: torch.cat(tg.epnp_batched(P, uv, K, dist), 1),
         "keypoints_to_pose": lambda: torch.cat(tg.keypoints_to_pose(x, y, bbox, P, K, dist), 1),
+        "compute_position_spn_batched": lambda: tg.compute_position_spn_batched(
+            q, bbox, P, K, dist),
     }
 
 

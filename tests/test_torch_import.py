@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX, and its train and test CLIs refuse what
-they do not serve: a missing GPU without --no_cuda, and the flags of parts
-not yet ported."""
+they do not serve: a missing GPU without --no_cuda, an unknown model name,
+and the flags of parts not yet ported."""
 import os
 import subprocess
 import sys
@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
     p = "speedplusbaseline_tpu_torch."
     assert {p + m for m in ("geometry.epnp", "geometry.quaternion", "geometry.projection",
                             "geometry._eigh", "geometry._precision", "metrics.pose_score",
-                            "test", "io_utils.misc", "io_utils.visualize")} <= mods
+                            "test", "io_utils.misc", "io_utils.visualize",
+                            "geometry.spn_position", "models.spn", "models.build")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -57,14 +58,19 @@ def test_test_cli_raises_without_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model_name", "spn", "--test_epoch", "1"], ["--model_name", "spn"], ["--perform_dann"],
-    ["--num_devices", "2"], ["--profile_dir", "prof"], ["--use_native_loader"],
-    ["--cache_dir", "cache"],
+    ["--perform_dann"], ["--model_name", "spn", "--perform_dann"], ["--num_devices", "2"],
+    ["--profile_dir", "prof"], ["--use_native_loader"], ["--cache_dir", "cache"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
-    """Both CLIs refuse each flag (the first case is SPN validation, SPN's
-    eval step being unported)."""
+    """Both CLIs refuse each flag."""
     for main in (train.main, test_cli.main):
         with pytest.raises(NotImplementedError):
             main(flags + ["--no_cuda", "--savedir", str(tmp_path / "s"),
                           "--logdir", str(tmp_path / "l")])
+
+
+def test_unknown_model_name_raises(tmp_path):
+    for main in (train.main, test_cli.main):
+        with pytest.raises(ValueError, match="krn or spn"):
+            main(["--model_name", "foo", "--no_cuda", "--savedir", str(tmp_path / "s"),
+                  "--logdir", str(tmp_path / "l")])
