@@ -37,10 +37,23 @@ Phases, each printing its own lines:
                 the trainer's ``model_best.pt``, each with the launch
                 counters set to 0 just before it and read just after; the
                 two evaluations must agree;
-  7. resident, eval, spn_eval -- per model, the styled and plain train steps
+  7. grl      -- the gradient reversal on the card: the gradient of the
+                source domain loss with respect to the backbone map, taken
+                through RevGrad at alpha 0.37, is -0.37 times the one taken
+                through the domain classifier alone;
+  8. dann     -- DANN adaptation from disk on data the port makes itself:
+                its generator writes 64 + 64 synthetic and lightbox frames
+                of 640x400, its preprocess CLI labels them on the card, and
+                the adapt CLI (``adapt.main``) runs the README adapt recipe
+                (224^2, batch 16 + 16, RMSprop, f32) for one epoch of 4
+                steps with a validation of the 64 lightbox rows, then the
+                test CLI with --perform_dann scores its model_best.pt (the
+                two must agree); B1 and B2 must launch 0 times;
+  9. resident, eval, spn_eval -- per model, the styled and plain train steps
                 on a resident batch (host clock, and device busy time by
                 torch.profiler), and the eval step (forward, geometry) as
-                device time and on the host clock.
+                device time and on the host clock; the DANN step on resident
+                batches of 16 + 16 in f32 and in bf16.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -117,6 +130,10 @@ TOL_EPNP_CARD = (1e-4, 1e-3)
 TOL_SPN_GT = 1e-4
 TOL_SPN_CARD = (1e-4, 1e-3)
 EVAL_ROWS = 100
+# DANN: the README adapt recipe's batch per stream, the rows of each split
+# the generator writes, and the reversal coefficient of phase grl.
+DANN_B, DANN_ROWS, GRL_ALPHA = 16, 64, 0.37
+TOL_GRL = 1e-6  # relative
 
 
 def fail(msg: str) -> None:
@@ -611,7 +628,7 @@ def phase_spn_geometry(dev):
 
     # A weight head whose top class is the true attitude's nearest bin.
     logits = torch.randn(B, SPN_CLASSES, generator=torch.Generator().manual_seed(7))
-    near = torch.from_numpy(quat_bins_batch(q, q_class.numpy(), 1)[0][:, 0].astype(np.int64))
+    near = torch.from_numpy(quat_bins(q, q_class.numpy(), 1)[0][:, 0].astype(np.int64))
     logits[torch.arange(B), near] += 8.0
     pose_args = [logits, torch.from_numpy(box)]
     q_cpu, t_cpu = spn_pose(*pose_args, q_class, *consts, SPN_NEIGHBORS)
@@ -649,17 +666,16 @@ def phase_spn_geometry(dev):
           f"called eagerly {eager_ms:.3f} ms (host-paced)", flush=True)
 
 
-def quat_bins_batch(q, q_class, n: int):
+def quat_bins(q, q_class, n: int):
     """The nearest ``n`` attitude classes of each quaternion in q (B, 4) and
-    their weights 1 - theta / pi^2, normalized: a numpy copy of the JAX
-    package's ``data/preprocess.py::get_quat_bins``, one row per q."""
+    their weights, by the port's ``data/preprocess.py::get_quat_bins``, one
+    row per q."""
     import numpy as np
 
-    dots = np.minimum(np.abs(np.asarray(q, np.float64) @ q_class.astype(np.float64).T), 1.0)
-    angles = 2.0 * np.arccos(dots)
-    order = np.argsort(angles, axis=1, kind="stable")[:, :n]
-    weights = 1.0 - np.take_along_axis(angles, order, 1) / np.pi ** 2
-    return order, weights / weights.sum(1, keepdims=True)
+    from speedplusbaseline_tpu_torch.data import get_quat_bins
+
+    bins = [get_quat_bins(qi, q_class.astype(np.float64), n) for qi in q]
+    return np.stack([c for c, _ in bins]), np.stack([w for _, w in bins])
 
 
 def write_images(base: str, rs, n_images: int):
@@ -712,7 +728,7 @@ def write_dataset(root: str, model: str, n_rows: int, n_images: int = 48, seed: 
         if model == "krn":
             labels = uv.reshape(n, -1)
         else:
-            classes, weights = quat_bins_batch(q, load_attitude_classes(), SPN_NEIGHBORS)
+            classes, weights = quat_bins(q, load_attitude_classes(), SPN_NEIGHBORS)
             labels = np.concatenate([classes, weights], 1)
         return [[f"synthetic/images/{names[r % n_images]}"] + box[r].tolist() + q[r].tolist()
                 + t[r].tolist() + labels[r].tolist() for r in range(n)]
@@ -752,7 +768,7 @@ def phase_main(dev, model: str, steps: int):
     import numpy as np
     import torch
 
-    from speedplusbaseline_tpu_torch import test, train
+    from speedplusbaseline_tpu_torch import train
     from speedplusbaseline_tpu_torch.ops import _build
 
     phase, side, extra, losses = MAIN[model]
@@ -797,42 +813,163 @@ def phase_main(dev, model: str, steps: int):
         print(f"phase {phase}: step ms after the first {[round(v, 2) for v in ms]}; median "
               f"{step_ms:.2f} ms = {B * 1000 / step_ms:.1f} img/s (from disk, "
               f"8 loader threads)", flush=True)
-        valid = check_eval(os.path.join(tmp, "log"), "trainer's validation", phase)
-        with open(os.path.join(tmp, "log", "scalars.jsonl")) as f:
-            tags = {r["tag"]: r["value"] for r in map(json.loads, f)}
-        if not {f"train/{k}" for k in losses} <= set(tags):
-            fail(f"{phase}: the train/ loss scalars {losses} are missing from {sorted(tags)}")
-        for name, tag in VALID_TAGS.items():
-            # the dumps are printed to 1e-5; the meters average f32 batch means
-            if tag not in tags or not math.isclose(tags[tag], valid[name].mean(), rel_tol=1e-6,
-                                                   abs_tol=1e-5):
-                fail(f"{phase}: trainer's validation: scalar {tag!r} missing or not the "
-                     "dumps' mean")
+        check_validation_and_test_cli(phase, tmp, common, losses, EVAL_ROWS, "trainer")
+    return launches
 
-        # The test CLI on the trainer's weights: the same rows, the same numbers.
+
+def check_validation_and_test_cli(phase: str, tmp: str, common, losses, rows: int,
+                                  trainer: str) -> None:
+    """After a training CLI's run that validated ``rows`` rows into
+    tmp/log: its dumps, its train/ loss scalars and its Valid/ scalars (the
+    dumps' means); then the test CLI on tmp/save/model_best.pt with the
+    ``common`` flags must give the same numbers."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch import test
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    valid = check_eval(os.path.join(tmp, "log"), f"{trainer}'s validation", phase, rows)
+    with open(os.path.join(tmp, "log", "scalars.jsonl")) as f:
+        tags = {r["tag"]: r["value"] for r in map(json.loads, f)}
+    if not {f"train/{k}" for k in losses} <= set(tags):
+        fail(f"{phase}: the train/ loss scalars {losses} are missing from {sorted(tags)}")
+    for name, tag in VALID_TAGS.items():
+        # the dumps are printed to 1e-5; the meters average f32 batch means
+        if tag not in tags or not math.isclose(tags[tag], valid[name].mean(), rel_tol=1e-6,
+                                               abs_tol=1e-5):
+            fail(f"{phase}: {trainer}'s validation: scalar {tag!r} missing or not the "
+                 "dumps' mean")
+
+    # The test CLI on the trained weights: the same rows, the same numbers.
+    _build.reset_launches()
+    t0 = time.time()
+    meters = test.main(common + ["--savedir", os.path.join(tmp, "save"),
+                                 "--logdir", os.path.join(tmp, "log_test"),
+                                 "--resultfn", "results.txt", "--pretrained",
+                                 os.path.join(tmp, "save", "model_best.pt")])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    test_launches = dict(_build.launches)
+    tested = check_eval(os.path.join(tmp, "log_test"), "test CLI", phase, rows)
+    with open(os.path.join(tmp, "log_test", "results.txt")) as f:
+        results = f.read().splitlines()
+    if [r.split(":")[0] for r in results] != list(VALID_TAGS):
+        fail(f"{phase}: results.txt holds {results}")
+    for name in VALID_TAGS:
+        if not math.isclose(meters[name].avg, tags[VALID_TAGS[name]], rel_tol=1e-4):
+            fail(f"{phase}: test CLI {name} {meters[name].avg} != {trainer}'s validation "
+                 f"{tags[VALID_TAGS[name]]}")
+    print(f"phase {phase}: test CLI on model_best.pt: {results}; agrees with the "
+          f"{trainer}'s validation (rel 1e-4; dumps max diff "
+          f"{max(np.abs(tested[k] - valid[k]).max() for k in DUMPS):.2e}); launches "
+          f"{test_launches}, wall {wall:.1f} s incl. set-up", flush=True)
+
+
+def phase_grl(dev) -> None:
+    """The gradient reversal on the card, one batch of 2 at 224^2 in f32:
+    d loss_source / d backbone map through RevGrad at GRL_ALPHA equals
+    -GRL_ALPHA times the same gradient through the domain classifier alone."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.models import RevGrad, bce_with_logits
+
+    torch.manual_seed(0)
+    model = RevGrad(11, (S, S)).to(dev, memory_format=torch.channels_last).train()
+    x = torch.rand(2, 3, S, S, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    x = x.contiguous(memory_format=torch.channels_last)
+    maps = []
+    hook = model.net.base.register_forward_hook(lambda mod, inp, out: maps.append(out[0]))
+    try:
+        _, dom = model(x, GRL_ALPHA)
+    finally:
+        hook.remove()
+    (g_rev,) = torch.autograd.grad(bce_with_logits(dom, torch.ones_like(dom)), maps[0])
+    leaf = maps[0].detach().requires_grad_()
+    dom_plain = model.domain_classifier(leaf.float())
+    (g,) = torch.autograd.grad(bce_with_logits(dom_plain, torch.ones_like(dom_plain)), leaf)
+    scale = (GRL_ALPHA * g).abs().max().item()
+    err = (g_rev + GRL_ALPHA * g).abs().max().item() / scale
+    print(f"phase grl: d loss_source / d backbone map {tuple(g.shape)} through RevGrad at "
+          f"alpha {GRL_ALPHA} vs -{GRL_ALPHA} x through the domain classifier alone: max "
+          f"rel err {err:.2e} (tol {TOL_GRL:g}; gradient scale {scale:.3e})", flush=True)
+    if not (math.isfinite(err) and scale > 0 and err <= TOL_GRL):
+        fail("grl: the reversed gradient is not -alpha times the domain gradient")
+
+
+def phase_dann(dev):
+    """The adapt CLI from disk at full width on data the port generated and
+    labelled, then the test CLI with --perform_dann on its model_best.pt.
+    Returns the kernel launches of the adapt run (B1 and B2 must be 0: the
+    DANN step has no restyle)."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch import adapt, preprocess
+    from speedplusbaseline_tpu_torch.data import generate_fake_speedplus
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    losses = ("loss_pose", "loss_source", "loss_target")
+    steps = DANN_ROWS // DANN_B
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        generate_fake_speedplus(tmp, num_train=DANN_ROWS, num_test=DANN_ROWS, width=640,
+                                height=400, device=dev)
+        for domain, jsonfile, csv in (("synthetic", "train.json", "splits_krn/train.csv"),
+                                      ("lightbox", "test.json", "splits_krn/lightbox.csv")):
+            preprocess.main(["--dataroot", tmp, "--domain", domain, "--jsonfile", jsonfile,
+                             "--csvfile", csv])
+        print(f"phase dann: the port's generator and preprocess CLI wrote 2 x {2 * DANN_ROWS} "
+              f"frames of 640x400 and their CSVs in {time.time() - t0:.1f} s", flush=True)
+        # The README adapt recipe (224^2, RMSprop, f32), one epoch.
+        common = ["--dataroot", tmp, "--perform_dann", "--num_workers", "8"]
+        argv = common + ["--savedir", os.path.join(tmp, "save"),
+                         "--logdir", os.path.join(tmp, "log"), "--batch_size", str(DANN_B),
+                         "--max_epochs", "1", "--test_epoch", "1", "--start_over"]
         _build.reset_launches()
         t0 = time.time()
-        meters = test.main(common + ["--savedir", os.path.join(tmp, "save"),
-                                     "--logdir", os.path.join(tmp, "log_test"),
-                                     "--resultfn", "results.txt", "--pretrained",
-                                     os.path.join(tmp, "save", "model_best.pt")])
+        records = adapt.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        test_launches = dict(_build.launches)
-        tested = check_eval(os.path.join(tmp, "log_test"), "test CLI", phase)
-        with open(os.path.join(tmp, "log_test", "results.txt")) as f:
-            results = f.read().splitlines()
-        if [r.split(":")[0] for r in results] != list(VALID_TAGS):
-            fail(f"{phase}: results.txt holds {results}")
-        for name in VALID_TAGS:
-            if not math.isclose(meters[name].avg, tags[VALID_TAGS[name]], rel_tol=1e-4):
-                fail(f"{phase}: test CLI {name} {meters[name].avg} != trainer's validation "
-                     f"{tags[VALID_TAGS[name]]}")
-        print(f"phase {phase}: test CLI on model_best.pt: {results}; agrees with the "
-              f"trainer's validation (rel 1e-4; dumps max diff "
-              f"{max(np.abs(tested[k] - valid[k]).max() for k in DUMPS):.2e}); launches "
-              f"{test_launches}, wall {wall:.1f} s incl. set-up", flush=True)
+        launches = dict(_build.launches)
+        print("", flush=True)
+        if len(records) != steps:
+            fail(f"dann ran {len(records)} steps, expected {steps}")
+        if not all(np.isfinite(r[k]) for r in records for k in losses):
+            fail(f"dann: non-finite loss in {records}")
+        for f in ("checkpoint.pt", "model_best.pt"):
+            if not os.path.exists(os.path.join(tmp, "save", f)):
+                fail(f"dann: no {f} written")
+        if any(launches.values()):
+            fail(f"dann: the DANN step has no restyle, but the kernels launched {launches}")
+        ms = [r["ms"] for r in records[1:]]
+        print(f"phase dann: {steps} DANN steps at {S}^2, batch {DANN_B} + {DANN_B}, RMSprop, "
+              f"f32: alpha {[round(r['alpha'], 4) for r in records]}, losses "
+              f"{[[round(r[k], 4) for k in losses] for r in records]} ({', '.join(losses)}), "
+              f"launches {launches}, wall {wall:.1f} s incl. set-up", flush=True)
+        print(f"phase dann: step ms after the first {[round(v, 2) for v in ms]}; median "
+              f"{statistics.median(ms):.2f} ms (from disk, 8 loader threads)", flush=True)
+        check_validation_and_test_cli("dann", tmp, common, losses, DANN_ROWS, "adapt CLI")
     return launches
+
+
+def phase_resident_dann(dev) -> None:
+    """The DANN step on resident batches of 16 + 16 at 224^2, RMSprop, in f32
+    (the README adapt recipe) and in bf16: host clock and device busy time."""
+    import torch
+
+    from speedplusbaseline_tpu_torch import profile_step
+
+    for fp16 in (False, True):
+        state, step, batch = profile_step.build_dann(dev, fp16)
+        ms = [profile_step.time_step(state, step, batch, False) for _ in range(2)]
+        label = f"dann {'bf16' if fp16 else 'f32'}"
+        busy = profile_step.profile(state, step, batch, False, table=False, label=label)
+        print(f"phase resident: {label} step {[round(x, 2) for x in ms]} ms on the host clock; "
+              f"device busy {busy:.2f} ms a step (batch {DANN_B} + {DANN_B}, {S}^2, RMSprop)",
+              flush=True)
+        del state, step, batch
+        torch.cuda.empty_cache()
 
 
 # meter name -> the trainer's scalar tag; DUMPS: meter name -> per-row dump.
@@ -842,8 +979,8 @@ DUMPS = {"eR": "err_q.txt", "eT": "err_t.txt", "speed (raw)": "speed_raw.txt",
          "speed (thr)": "speed_mod.txt"}
 
 
-def check_eval(logdir: str, what: str, phase: str):
-    """The four dumps of one evaluation: EVAL_ROWS finite lines each.
+def check_eval(logdir: str, what: str, phase: str, n_rows: int = EVAL_ROWS):
+    """The four dumps of one evaluation: ``n_rows`` finite lines each.
     Returns meter name -> the rows."""
     import numpy as np
 
@@ -851,11 +988,11 @@ def check_eval(logdir: str, what: str, phase: str):
     for name, fname in DUMPS.items():
         with open(os.path.join(logdir, fname)) as f:
             rows = np.array([float(v) for v in f.read().split()])
-        if rows.shape != (EVAL_ROWS,) or not np.isfinite(rows).all():
+        if rows.shape != (n_rows,) or not np.isfinite(rows).all():
             fail(f"{phase}: {what}: {fname} holds {rows.shape[0]} rows, "
-                 f"{int(np.isfinite(rows).sum())} finite; expected {EVAL_ROWS}")
+                 f"{int(np.isfinite(rows).sum())} finite; expected {n_rows}")
         out[name] = rows
-    print(f"phase {phase}: {what}: {EVAL_ROWS} rows in each dump, all finite; means "
+    print(f"phase {phase}: {what}: {n_rows} rows in each dump, all finite; means "
           f"{ {k: round(float(v.mean()), 5) for k, v in out.items()} }", flush=True)
     return out
 
@@ -1004,9 +1141,12 @@ def main() -> None:
     phase_geometry(dev)
     phase_spn_geometry(dev)
     launches = {"krn": phase_main(dev, "krn", 6), "spn": phase_main(dev, "spn", 4)}
+    phase_grl(dev)
+    launches["dann"] = phase_dann(dev)
     for model in ("krn", "spn"):
         phase_resident(dev, model)
         phase_eval(dev, model)
+    phase_resident_dann(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -1028,8 +1168,9 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count both main "
-          "paths (6 KRN and 4 SPN styled steps), launches_by_path each; B1's bound_ms counts "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the three "
+          "main paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle), "
+          "launches_by_path each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

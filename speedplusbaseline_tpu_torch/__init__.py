@@ -4,13 +4,17 @@ The port of ``speedplusbaseline_tpu`` (JAX) to one NVIDIA H100. It keeps
 the JAX package's subpackage and module names, so each module's counterpart
 is found under the same path:
 
-    config.py, train.py  -- the KRN training CLI (``python -m
+    config.py, train.py  -- the KRN / SPN training CLI (``python -m
                             speedplusbaseline_tpu_torch.train``)
-    engine/              -- train step, epoch loop, optimizers, state
-    models/              -- KRN (MobileNetV2), Ghiasi style generator
+    test.py, adapt.py,   -- the evaluation, DANN adaptation and label
+    preprocess.py           preprocessing CLIs
+    engine/              -- train and eval steps, epoch loops, optimizers, state
+    models/              -- KRN (MobileNetV2), SPN, RevGrad (DANN), Ghiasi
     augment/             -- photometric augs, style augmentor
     ops/, csrc/          -- hand-written CUDA kernels (sm_90a) + plain versions
-    data/                -- CSV dataset, host crop, pinned-memory loader
+    geometry/, metrics/  -- projection, EPnP, SPN position, SPEED score
+    data/                -- CSV dataset, host crop, pinned-memory loader,
+                            label preprocessing, the fake SPEED+ generator
     io_utils/            -- checkpoints, summaries, meters, assets
     convert.py           -- JAX parameter trees <-> state_dicts
 

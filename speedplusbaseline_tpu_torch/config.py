@@ -109,7 +109,6 @@ def default_cfg(**overrides) -> SimpleNamespace:
 
 # (flag, test on cfg, reason) for options the port does not serve yet.
 _UNPORTED = (
-    ("--perform_dann", lambda c: c.dann, "DANN adaptation is not ported yet"),
     ("--num_devices", lambda c: c.num_devices != 0,
      "data parallelism over several devices is not ported yet"),
     ("--profile_dir", lambda c: bool(c.profile_dir),
@@ -121,12 +120,15 @@ _UNPORTED = (
 
 
 def check_ported(cfg) -> None:
-    """Raise ValueError for a model name that is neither krn nor spn, and
-    NotImplementedError for a flag this port does not serve."""
+    """Raise ValueError for a model name that is neither krn nor spn, or
+    for DANN on another model than KRN, and NotImplementedError for a flag
+    this port does not serve."""
     from .models.build import MODEL_NAMES
 
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"--model_name must be krn or spn, got {cfg.model_name!r}")
+    if cfg.dann and cfg.model_name != "krn":
+        raise ValueError("--perform_dann adapts KRN only (--model_name krn)")
     for flag, test, reason in _UNPORTED:
         if test(cfg):
             raise NotImplementedError(f"{flag}: {reason}")

@@ -114,15 +114,19 @@ class DataLoader:
             yield {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
 
-def make_dataloader(cfg, device: torch.device, is_train: bool = True) -> DataLoader:
+def make_dataloader(cfg, device: torch.device, is_train: bool = True, is_source: bool = True,
+                    load_labels: bool = True) -> DataLoader:
     """Loader of the reference's build.py:45-66. Train: cfg.batch_size,
-    shuffled, the short last batch dropped. Eval (the test CSV):
-    cfg.eval_batch_size, CSV order, half the workers, the short last batch
-    kept (the reference evaluates batch 1; per-image results are the same)."""
+    shuffled, the short last batch dropped; the labelled source stream by
+    default, and with ``is_source=False, load_labels=False`` DANN's
+    unlabelled target stream (the test domain's CSV, images only). Eval (the
+    test CSV): cfg.eval_batch_size, CSV order, half the workers, the short
+    last batch kept (the reference evaluates batch 1; per-image results are
+    the same)."""
     from .csv_dataset import build_dataset
 
     if is_train:
-        return DataLoader(build_dataset(cfg, is_train=True, is_source=True), cfg.batch_size,
+        return DataLoader(build_dataset(cfg, True, is_source, load_labels), cfg.batch_size,
                           device, shuffle=True, num_workers=cfg.num_workers,
                           seed=cfg.seed)
     return DataLoader(build_dataset(cfg, is_train=False, is_source=False), cfg.eval_batch_size,

@@ -14,8 +14,11 @@ import torch
 from ..io_utils.meters import AverageMeter, report_progress
 
 
-def _meter_names(model_name: str):
-    """The loss terms a train step returns (reference trainer.py meters)."""
+def _meter_names(model_name: str, dann: bool = False):
+    """The loss terms a train step returns (reference trainer.py and dann.py
+    meters)."""
+    if dann:
+        return ("loss_pose", "loss_source", "loss_target")
     return ("loss_c", "loss_r") if model_name == "spn" else ("loss_x", "loss_y")
 
 
@@ -28,16 +31,30 @@ def style_gate(seed: int, epoch: int) -> np.random.Generator:
 
 
 def train_epoch(epoch, cfg, state, train_step, loader, writer,
-                styled: bool = False, lr_value: float = 0.0) -> List[dict]:
+                styled: bool = False, lr_value: float = 0.0, dann_loaders=None,
+                dann_alpha_fn=None) -> List[dict]:
     """One training epoch. ``styled`` says whether a style augmentor exists;
     each step is then restyled when the gate draws < texture_ratio.
+    For DANN, pass ``dann_loaders=(source_loader, target_loader)`` and
+    ``dann_alpha_fn(idx, n_batches) -> alpha`` (dann.py:55-78) in place of
+    ``loader``: the epoch zips the two for min(len) steps and calls
+    ``train_step(state, source_batch, target_batch, np.float32(alpha))``.
     Returns one record per step: {step, styled, ms} and the loss terms
-    (loss_x, loss_y for KRN; loss_c, loss_r for SPN)."""
-    names = _meter_names(cfg.model_name)
+    (loss_x, loss_y for KRN; loss_c, loss_r for SPN; loss_pose,
+    loss_source, loss_target for DANN)."""
+    names = _meter_names(cfg.model_name, cfg.dann)
     time_meter = AverageMeter("ms")
     meters = {n: AverageMeter("-") for n in names}
-    loader.set_epoch(epoch)
-    n_batches = len(loader)
+    if dann_loaders is not None:
+        source_loader, target_loader = dann_loaders
+        source_loader.set_epoch(epoch)
+        target_loader.set_epoch(epoch)
+        n_batches = min(len(source_loader), len(target_loader))
+        batches = zip(source_loader, target_loader)
+    else:
+        loader.set_epoch(epoch)
+        n_batches = len(loader)
+        batches = loader
     gate = style_gate(cfg.seed, epoch)
     records: List[dict] = []
 
@@ -56,10 +73,16 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
 
     pending = None
     start = time.time()
-    for idx, batch in enumerate(loader):
-        B = batch["image"].shape[0]
-        step_styled = styled and gate.random() < cfg.texture_ratio
-        sm = train_step(state, batch, step_styled)
+    for idx, batch in enumerate(batches):
+        if dann_loaders is not None:
+            source_batch, target_batch = batch
+            B, step_styled = source_batch["image"].shape[0], False
+            sm = train_step(state, source_batch, target_batch,
+                            np.float32(dann_alpha_fn(idx, n_batches)))
+        else:
+            B = batch["image"].shape[0]
+            step_styled = styled and gate.random() < cfg.texture_ratio
+            sm = train_step(state, batch, step_styled)
         # Timestamp BEFORE flushing the lagged readback so step i's recorded
         # wall-time never includes step i-1's host fetch.
         now = time.time()

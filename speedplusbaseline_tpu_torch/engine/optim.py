@@ -13,11 +13,13 @@ the JAX package do (cfg.momentum doubles as beta1 / the RMS decay):
   adamw   -> AdamW(betas=(m, 0.999), eps=1e-8, weight_decay=wd): decoupled
              decay, p -= lr*(adam_update + wd*p)
 
-KRN clips by global norm 1.0 before the step (trainer.py:97).
+KRN and DANN clip by global norm 1.0 before the step (trainer.py:97,
+dann.py:99).
 ``clip_grad_norm_`` scales by max_norm / (norm + 1e-6); optax by
 max_norm / norm. The relative difference is 1e-6 / norm, below f32 noise at
-any norm this clip acts on. SPN clips each gradient element to [-1, 1]
-(``clip_grad_value_``, trainer.py:184; optax ``clip(1.0)``).
+any norm this clip acts on. SPN, unless it is DANN, clips each gradient
+element to [-1, 1] (``clip_grad_value_``, trainer.py:184; optax
+``clip(1.0)``), as the JAX package's ``spn and not dann``.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ KRN_CLIP_NORM = 1.0
 SPN_CLIP_VALUE = 1.0
 
 
-def clip_gradients(model_name: str, params: Iterable[torch.nn.Parameter]) -> None:
+def clip_gradients(model_name: str, params: Iterable[torch.nn.Parameter],
+                   dann: bool = False) -> None:
     """The model's clip, in place, between backward and the step."""
-    if model_name == "spn":
+    if model_name == "spn" and not dann:
         torch.nn.utils.clip_grad_value_(params, SPN_CLIP_VALUE)
     else:
         torch.nn.utils.clip_grad_norm_(params, KRN_CLIP_NORM)

@@ -1,6 +1,7 @@
-"""KRN and SPN train and eval steps (counterpart of ``speedplusbaseline_tpu/
-engine/steps.py``: ``make_{krn,spn}_train_step``, ``make_{krn,spn}_eval_step``;
-reference trainer.py:41-199, inference.py:43-225).
+"""KRN, SPN and DANN train steps and KRN and SPN eval steps (counterpart of
+``speedplusbaseline_tpu/engine/steps.py``: ``make_{krn,spn,dann}_train_step``,
+``make_{krn,spn}_eval_step``; reference trainer.py:41-199, dann.py:38-117,
+inference.py:43-225).
 
 A KRN step: uint8 -> [0, 1] on the device, the photometric augs, the Ghiasi
 restyle when the host gate says so, the forward, ``krn_loss``, backward,
@@ -10,6 +11,14 @@ f32, backward, clip by value 1.0 and the step. ``--use_fp16`` means a
 bfloat16 autocast around the forward with f32 parameters and no GradScaler,
 as the JAX package's bf16 compute; the restyle runs in the style
 augmentor's own dtype.
+
+A DANN step (KRN only) runs the photometric augs on a labelled source
+batch and an unlabelled target batch (the target with dummy zero
+keypoints), two train-mode forwards of ``RevGrad``, source then target, so
+the BatchNorm running statistics move as JAX's ``bs1`` -> ``bs2``, and one
+backward of the pose loss plus both domain losses through the gradient
+reversal layer; then clip by global norm 1.0 and the step. It has no
+restyle.
 
 The eval steps run the forward in eval mode under ``torch.inference_mode``
 (bf16 autocast with ``--use_fp16``), then the pose and the SPEED scores in
@@ -31,6 +40,7 @@ from ..geometry import (compute_position_spn_batched, f32_math, keypoints_to_pos
                         weighted_mean_quaternion)
 from ..metrics import speed_score_batched
 from ..models.krn import krn_loss
+from ..models.revgrad import bce_with_logits
 from ..models.spn import spn_loss
 from .optim import clip_gradients
 from .state import TrainState
@@ -65,14 +75,20 @@ def krn_step(state: TrainState, images: torch.Tensor, keypts: torch.Tensor,
     return _update(state, "krn", loss, sm)
 
 
-def _update(state: TrainState, model_name: str, loss, sm) -> Dict[str, torch.Tensor]:
+def _update(state: TrainState, model_name: str, loss, sm,
+            dann: bool = False) -> Dict[str, torch.Tensor]:
     """Backward, the model's clip, the optimizer step; the detached loss terms."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    clip_gradients(model_name, state.model.parameters())
+    clip_gradients(model_name, state.model.parameters(), dann)
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in sm.items()}
+
+
+def _draws(gen: torch.Generator, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The aug draws of one (B, H, W, 3) batch."""
+    return draw_augment(gen, images.shape[0], (images.shape[3], images.shape[1], images.shape[2]))
 
 
 def make_krn_train_step(cfg, device: torch.device, style_aug=None):
@@ -84,12 +100,56 @@ def make_krn_train_step(cfg, device: torch.device, style_aug=None):
     gen = torch.Generator(device=device)
 
     def train_step(state: TrainState, batch, styled: bool):
-        images, keypts = batch["image"], batch["keypts"]
         gen.manual_seed((cfg.seed << 32) + state.step)
-        draws = draw_augment(gen, images.shape[0],
-                             (images.shape[3], images.shape[1], images.shape[2]))
-        return krn_step(state, images, keypts, draws, cfg.fp16,
-                        style_aug if styled else None, gen)
+        return krn_step(state, batch["image"], batch["keypts"], _draws(gen, batch["image"]),
+                        cfg.fp16, style_aug if styled else None, gen)
+
+    return train_step
+
+
+def dann_step(state: TrainState, src_images: torch.Tensor, keypts: torch.Tensor,
+              src_draws: Dict[str, torch.Tensor], tgt_images: torch.Tensor,
+              tgt_draws: Dict[str, torch.Tensor], alpha: float,
+              fp16: bool) -> Dict[str, torch.Tensor]:
+    """One DANN step on given aug draws of both streams; ``alpha`` scales
+    the reversed gradient. Returns {loss_pose, loss_source, loss_target}
+    (device scalars, detached)."""
+    xs, kp = apply_augment(images_to_float(src_images), keypts, src_draws)
+    dummy = keypts.new_zeros((tgt_images.shape[0], *keypts.shape[1:]))
+    xt, _ = apply_augment(images_to_float(tgt_images), dummy, tgt_draws)
+
+    model = state.model
+    model.train()
+    with torch.autocast(xs.device.type, dtype=torch.bfloat16, enabled=fp16):
+        (xc, yc), dom_src = model(xs, alpha)
+        _, dom_tgt = model(xt, alpha)
+    loss_pose, _ = krn_loss(xc.float(), yc.float(), kp)
+    loss_source = bce_with_logits(dom_src, torch.ones_like(dom_src))
+    loss_target = bce_with_logits(dom_tgt, torch.zeros_like(dom_tgt))
+    sm = {"loss_pose": loss_pose, "loss_source": loss_source, "loss_target": loss_target}
+    return _update(state, "krn", loss_pose + loss_source + loss_target, sm, dann=True)
+
+
+# Added to the (seed, step) seed of the target stream's generator, so the two
+# streams draw independently.
+_TARGET_STREAM = 1 << 63
+
+
+def make_dann_train_step(cfg, device: torch.device):
+    """Returns fn(state, source_batch, target_batch, alpha) -> {loss_pose,
+    loss_source, loss_target}. Each stream's aug draws come from its own
+    device generator, reseeded from (seed, step) and the stream, as
+    make_krn_train_step does, so a resumed run draws what an uninterrupted
+    one would."""
+    src_gen, tgt_gen = torch.Generator(device=device), torch.Generator(device=device)
+
+    def train_step(state: TrainState, source_batch, target_batch, alpha: float):
+        seed = (cfg.seed << 32) + state.step
+        src_gen.manual_seed(seed)
+        tgt_gen.manual_seed(seed + _TARGET_STREAM)
+        src, tgt = source_batch["image"], target_batch["image"]
+        return dann_step(state, src, source_batch["keypts"], _draws(src_gen, src), tgt,
+                         _draws(tgt_gen, tgt), alpha, cfg.fp16)
 
     return train_step
 

@@ -9,6 +9,11 @@ inside it runs in bf16 without any error), and a float32 matmul precision
 below ``"highest"`` (TF32 on the card). Every public geometry entry point
 runs under ``f32_math()``, which turns autocast off and sets the precision
 to ``"highest"`` for the call, then restores both.
+
+``fma`` rounds a * b + c once, as a fused multiply-add does: XLA's CPU code
+sums its dots and reductions that way, in index order, and the projection
+and quaternion norm follow it, so that the label CSVs the port writes are
+the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
@@ -32,3 +37,9 @@ def f32_math():
             yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to the dtype of ``a``: for float32 operands the
+    product is exact in float64, and the float64 sum is rounded to float32."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)

@@ -222,11 +222,14 @@ def _epnp(pws, uv_pix, camera_matrix, dist_coeffs):
                         dist_coeffs).reshape(3, B)
     R, t = R.reshape(3, B, 3, 3), t.reshape(3, B, 3)
 
-    # The JAX package's selection: first strictly better reprojection wins.
-    best_err = torch.full_like(err[0], float("inf"))
-    best_R = torch.eye(3, dtype=R.dtype, device=R.device).expand(B, 3, 3)
-    best_t = torch.zeros_like(t[0])
-    for k in range(3):
+    # The first strictly better reprojection wins, a NaN error counting as
+    # infinite. As OpenCV's EPnP, candidate 0 stands when no error is finite
+    # (its distortion polynomial overflows where a candidate puts a point at
+    # z ~ 0): the JAX package starts from R = I, t = 0 there, which the
+    # refinement's 1/z turns into NaN. Otherwise the choice is the JAX one.
+    err = torch.where(torch.isnan(err), float("inf"), err)
+    best_err, best_R, best_t = err[0], R[0], t[0]
+    for k in (1, 2):
         take = err[k] < best_err
         best_err = torch.where(take, err[k], best_err)
         best_R = torch.where(take[:, None, None], R[k], best_R)

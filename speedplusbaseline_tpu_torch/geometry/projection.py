@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ._precision import f32_math
+from ._precision import f32_math, fma
 from .quaternion import quat2dcm
 
 
@@ -65,5 +65,10 @@ def project_keypoints(q_vbs2tango, r_Vo2To_vbs, camera_matrix, dist_coeffs, keyp
         (..., 2, N) pixel coordinates, the reference's layout.
     """
     R = quat2dcm(q_vbs2tango).mT  # standard rotation matrix
-    xyz = keypoints @ R.mT + r_Vo2To_vbs[..., None, :]
+    # keypoints @ R.mT, summed over j in order by fused multiply-adds, as
+    # XLA's CPU dot does.
+    xyz = keypoints[:, 0:1] * R[..., None, :, 0]
+    for j in (1, 2):
+        xyz = fma(keypoints[:, j:j + 1], R[..., None, :, j], xyz)
+    xyz = xyz + r_Vo2To_vbs[..., None, :]
     return torch.stack(_pixels(xyz, camera_matrix, dist_coeffs), -2)

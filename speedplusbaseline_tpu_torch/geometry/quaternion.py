@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ._eigh import eigh
-from ._precision import f32_math
+from ._precision import f32_math, fma
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -30,8 +30,12 @@ def _skew(v: torch.Tensor) -> torch.Tensor:
 
 @f32_math()
 def quat_normalize(q):
-    """Normalize quaternion(s) along the last axis."""
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    """Normalize quaternion(s) along the last axis. The squares are summed
+    in index order by fused multiply-adds, as XLA's CPU reduction does."""
+    s = q[..., 0:1] * q[..., 0:1]
+    for i in range(1, 4):
+        s = fma(q[..., i:i + 1], q[..., i:i + 1], s)
+    return q / torch.sqrt(s)
 
 
 @f32_math()

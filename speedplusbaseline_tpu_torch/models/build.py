@@ -8,6 +8,7 @@ import logging
 import torch.nn as nn
 
 from .krn import KeypointRegressionNet
+from .revgrad import RevGrad
 from .spn import SpacecraftPoseNet
 
 logger = logging.getLogger(__name__)
@@ -16,16 +17,20 @@ MODEL_NAMES = ("krn", "spn")
 
 
 def get_model(cfg) -> nn.Module:
-    """KRN or SPN from ``cfg.model_name``, sized by ``cfg.input_shape``."""
+    """KRN or SPN from ``cfg.model_name``, sized by ``cfg.input_shape``;
+    with ``cfg.dann``, KRN inside ``RevGrad`` (DANN adapts KRN only)."""
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"unknown model_name {cfg.model_name!r}; expected one of "
                          f"{MODEL_NAMES}")
     if cfg.dann:
-        raise NotImplementedError("--perform_dann: DANN adaptation is not ported yet")
-    if cfg.model_name == "krn":
+        if cfg.model_name != "krn":
+            raise ValueError("--perform_dann adapts KRN only (--model_name krn)")
+        model = RevGrad(cfg.num_keypoints, cfg.input_shape)
+    elif cfg.model_name == "krn":
         model = KeypointRegressionNet(cfg.num_keypoints, cfg.input_shape)
     else:
         model = SpacecraftPoseNet(cfg.num_classes, input_shape=cfg.input_shape)
     n = sum(p.numel() for p in model.parameters())
-    logger.info("%s created; %s parameters", cfg.model_name.upper(), f"{n:,}")
+    logger.info("%s created; %s parameters", "RevGrad (KRN)" if cfg.dann
+                else cfg.model_name.upper(), f"{n:,}")
     return model

@@ -33,14 +33,18 @@ class KeypointRegressionNet(nn.Module):
         hk, wk = -(-input_shape[0] // 32), -(-input_shape[1] // 32)
         self.head = nn.Conv2d(1024, 2 * num_keypoints, (hk, wk))
 
-    def forward(self, x):
-        """(B, 3, H, W) images in [0, 1] -> (xc, yc), each (B, K) float32.
-        The input is cast to the parameters' dtype, as the flax module casts
-        it to its ``dtype`` (under autocast the convs then run in bf16)."""
+    def forward(self, x, return_features: bool = False):
+        """(B, 3, H, W) images in [0, 1] -> (xc, yc), each (B, K) float32,
+        and with ``return_features`` also the backbone's 320-channel map
+        (B, 320, H/32, W/32), which DANN's domain head reads. The input is
+        cast to the parameters' dtype, as the flax module casts it to its
+        ``dtype`` (under autocast the convs then run in bf16)."""
         feat, tap = self.base(x.to(self.head.weight.dtype))
         y = self.extra1(self.extra0(feat))
         y = self.extra3(self.router(y, tap))
         y = self.head(y).reshape(x.shape[0], 2 * self.num_keypoints).float()
+        if return_features:
+            return y[:, 0::2], y[:, 1::2], feat
         return y[:, 0::2], y[:, 1::2]
 
 

@@ -1,13 +1,16 @@
-"""Time and profile the KRN or SPN train step on one device-resident batch.
+"""Time and profile a train step on device-resident batches.
 
-    python -m speedplusbaseline_tpu_torch.profile_step [krn|spn]
+    python -m speedplusbaseline_tpu_torch.profile_step [krn|spn|dann]
 
-Builds the model + style augmentor of the README recipe (batch 48, AdamW,
-bf16 autocast, the Ghiasi asset; KRN at 224^2, SPN at 227^2 with 5000
-classes), times the styled and the plain step in turns (styled, plain,
-plain, styled; host clock around ``torch.cuda.synchronize()``), then
-profiles a few steps of each with ``torch.profiler`` and prints the kernels
-by device time and the device's busy share of the window. Needs a GPU.
+krn and spn: the model + style augmentor of the README recipe (batch 48,
+AdamW, bf16 autocast, the Ghiasi asset; KRN at 224^2, SPN at 227^2 with 5000
+classes); the styled and the plain step are timed in turns (styled, plain,
+plain, styled; host clock around ``torch.cuda.synchronize()``), then a few
+steps of each are profiled with ``torch.profiler``, which prints the kernels
+by device time and the device's busy share of the window. dann: the README
+adapt recipe's DANN step (RevGrad at 224^2, batch 16 source + 16 target,
+RMSprop, the default optimizer), in f32 and then in bf16 (``--use_fp16``),
+each timed and profiled. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -22,13 +25,34 @@ from .augment.styleaug import StyleAugmentor, load_ghiasi_params, load_style_sta
 from .config import default_cfg
 from .engine.optim import build_optimizer
 from .engine.state import TrainState
-from .engine.steps import make_train_step
+from .engine.steps import make_dann_train_step, make_train_step
 from .io_utils import default_assets_dir
 from .models.build import get_model
 
 BATCH, REPS = 48, 10
-SIZE = {"krn": 224, "spn": 227}
+SIZE = {"krn": 224, "spn": 227, "dann": 224}
 SPN_CLASSES, SPN_NEIGHBORS = 5000, 5
+DANN_BATCH = 16  # per stream
+DANN_ALPHA = 0.5
+
+
+def build_dann(dev: torch.device, fp16: bool):
+    """(state, step, batch) for the DANN step of the README adapt recipe:
+    ``batch`` holds a source and a target batch, and ``step(state, batch,
+    styled)`` (``styled`` unused: DANN has no restyle) runs one DANN step at
+    alpha DANN_ALPHA."""
+    S = SIZE["dann"]
+    cfg = default_cfg(dann=True, batch_size=DANN_BATCH, input_shape=(S, S), fp16=fp16)
+    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
+    state = TrainState(model, build_optimizer(cfg, model.parameters()))
+    rs = np.random.RandomState(0)
+    source = {"image": rs.randint(0, 256, (DANN_BATCH, S, S, 3), np.uint8),
+              "keypts": rs.rand(DANN_BATCH, 2, 11).astype(np.float32)}
+    target = {"image": rs.randint(0, 256, (DANN_BATCH, S, S, 3), np.uint8)}
+    batch = {name: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+             for name, b in (("source", source), ("target", target))}
+    dann = make_dann_train_step(cfg, dev)
+    return state, lambda st, b, styled: dann(st, b["source"], b["target"], DANN_ALPHA), batch
 
 
 def build(dev: torch.device, model_name: str = "krn"):
@@ -72,7 +96,7 @@ def time_step(state, step, batch, styled: bool) -> float:
 
 
 def profile(state, step, batch, styled: bool, steps: int = 3, rows: int = 15,
-            table: bool = True) -> float:
+            table: bool = True, label: str = "") -> float:
     """Profile ``steps`` steps; print the device's busy time per step and
     share of the window (and, with ``table``, the kernels by device time);
     return the busy ms per step."""
@@ -92,7 +116,8 @@ def profile(state, step, batch, styled: bool, steps: int = 3, rows: int = 15,
     # already counted), as the table's own "Self CUDA time total".
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    print(f"{'styled' if styled else 'plain'} step, {steps} steps profiled: device busy "
+    label = label or ("styled" if styled else "plain")
+    print(f"{label} step, {steps} steps profiled: device busy "
           f"{busy_us / 1000 / steps:.2f} ms per step, {100 * busy_us / wall_us:.1f}% of "
           f"the {wall_us / 1000:.2f} ms window (the window includes profiler overhead)",
           flush=True)
@@ -107,6 +132,19 @@ def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else list(argv)
     model_name = args[0] if args else "krn"
     dev = torch.device("cuda", 0)
+    # f32 math is full f32, as in the CLIs (cuDNN would run f32 convs in TF32).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if model_name == "dann":
+        for fp16 in (False, True):
+            state, step, batch = build_dann(dev, fp16)
+            ms = [time_step(state, step, batch, False) for _ in range(2)]
+            label = f"dann {'bf16' if fp16 else 'f32'}"
+            print(f"{label} step: {[round(m, 3) for m in ms]} ms (batch {DANN_BATCH} + "
+                  f"{DANN_BATCH}, {SIZE['dann']}^2, RMSprop)", flush=True)
+            profile(state, step, batch, False, label=label)
+            del state, step, batch
+        return
     state, step, batch = build(dev, model_name)
     for styled in (True, False, False, True):
         ms = time_step(state, step, batch, styled)

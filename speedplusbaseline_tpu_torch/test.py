@@ -1,8 +1,9 @@
 """KRN and SPN evaluation CLI: ``python -m speedplusbaseline_tpu_torch.test``.
 
 The counterpart of the JAX package's root ``test.py`` (reference test.py):
-build the model of ``--model_name``, load ``--pretrained``, validate over the
-test CSV (SPN also loads ``--attitude_class``), write the
+build the model of ``--model_name`` (with ``--perform_dann``, KRN inside
+``RevGrad``, to score a DANN checkpoint), load ``--pretrained``, validate
+over the test CSV (SPN also loads ``--attitude_class``), write the
 per-image dumps (err_q.txt, err_t.txt, speed_raw.txt, speed_mod.txt) to
 ``--logdir`` and the four averaged meters to ``$logdir/$resultfn``.
 

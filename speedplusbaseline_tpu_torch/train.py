@@ -7,9 +7,11 @@ epoch train -> validate every ``--test_epoch`` epochs -> checkpoint. SPN
 loads the attitude classes (``--attitude_class``), whose count must equal
 ``--num_classes``. Unlike the JAX trainer, the test loader, the Tango points
 and ``camera.json`` are read only when validation is on (``--test_epoch >
-0``), so a run without validation needs no test split. DANN and
-multi-device runs are not ported yet; their flags raise
-``NotImplementedError`` (config.check_ported).
+0``), so a run without validation needs no test split. ``--perform_dann``
+raises ``ValueError``: DANN trains through the adapt CLI
+(``python -m speedplusbaseline_tpu_torch.adapt``); the JAX trainer would
+train RevGrad's ``net`` alone. Multi-device runs are not ported yet; their
+flags raise ``NotImplementedError`` (config.check_ported).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -92,6 +94,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     loss terms: loss_x, loss_y for KRN, loss_c, loss_r for SPN)."""
     cfg = parse_cfg(argv)
     check_ported(cfg)
+    if cfg.dann:
+        raise ValueError("--perform_dann: DANN adaptation runs through the adapt CLI, "
+                         "python -m speedplusbaseline_tpu_torch.adapt")
     device = resolve_device(cfg)
     setup_logger("train")
     logger.info("Random seed value: %d", cfg.seed)

@@ -127,6 +127,59 @@ def test_projection_matches_jax(camera, tango_points):
                                             j32(tango_points)), 2e-3)
 
 
+def test_projection_and_quat_normalize_are_jax_bit_for_bit(camera, tango_points):
+    """The quaternion norm and the projection's dot sum by fused
+    multiply-adds in index order, as XLA's CPU code: project_keypoints, on
+    a batch, equals JAX's per-pose call bit for bit (label CSVs depend on
+    it); a plain torch matmul and vector_norm would not."""
+    K, dist = camera
+    rs = np.random.RandomState(9)
+    poses = [random_pose(rs) for _ in range(64)]
+    q = np.stack([p[0] for p in poses]).astype(np.float32)
+    t = np.stack([p[1] for p in poses]).astype(np.float32)
+    ours = tg.project_keypoints(t32(q), t32(t), t32(K), t32(dist), t32(tango_points)).numpy()
+    ref = np.stack([np.asarray(jg.project_keypoints(q[i], t[i], j32(K), j32(dist),
+                                                    j32(tango_points))) for i in range(64)])
+    np.testing.assert_array_equal(ours, ref)
+    qn = rs.randn(64, 4).astype(np.float32)
+    np.testing.assert_array_equal(tg.quat_normalize(t32(qn)).numpy(),
+                                  np.stack([np.asarray(jg.quat_normalize(j32(v))) for v in qn]))
+
+
+def test_epnp_keeps_candidate_0_when_no_error_is_finite():
+    """Keypoints regressed by a diverged model (a fake-dataset camera, the
+    Tango points): each beta candidate puts a model point at z ~ 0, where
+    the distortion polynomial overflows, so no reprojection error is finite.
+    The port keeps candidate 0, as OpenCV's EPnP, and returns a finite pose;
+    where no error is finite, the JAX package starts from R = I, t = 0 and
+    returns NaN. (JAX's control-point axes have other signs than the port's,
+    so on this input its candidates differ and one error is finite.)"""
+    import importlib
+
+    from speedplusbaseline_tpu_torch.io_utils import load_tango_3d_keypoints
+
+    epnp = importlib.import_module("speedplusbaseline_tpu_torch.geometry.epnp")
+    xc = [3.5113985538482666, 3.495016574859619, 2.049605369567871, 3.492147207260132,
+          3.7470903396606445, 0.9256380200386047, 4.293936729431152, 2.833529472351074,
+          0.17644639313220978, 3.239567756652832, 3.7825686931610107]
+    yc = [1.9329252243041992, -0.20483677089214325, 2.6299383640289307, -0.8355242609977722,
+          3.9751229286193848, 1.4153976440429688, -0.5752226114273071, 0.6912774443626404,
+          3.413667917251587, 3.6033759117126465, 3.7479560375213623]
+    bbox = t32([[286.0, 376.0, 182.0, 272.0]])
+    K = t32([[384.0, 0.0, 320.0], [0.0, 384.0, 200.0], [0.0, 0.0, 1.0]])
+    dist = t32([-0.1, 0.03, -5e-4, -5e-4, 0.0])
+    P = t32(load_tango_3d_keypoints())
+    errs = []
+    real = epnp._reproj_error
+    try:
+        epnp._reproj_error = lambda *a: errs.append(real(*a)) or errs[-1]
+        q, t = tg.keypoints_to_pose(t32([xc]), t32([yc]), bbox, P, K, dist)
+    finally:
+        epnp._reproj_error = real
+    assert errs and not torch.isfinite(errs[0]).any()
+    assert torch.isfinite(q).all() and torch.isfinite(t).all()
+
+
 def test_undistort_matches_opencv(camera):
     cv2 = pytest.importorskip("cv2")
     K, dist = camera

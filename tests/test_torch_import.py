@@ -1,6 +1,6 @@
-"""The PyTorch port imports no JAX, and its train and test CLIs refuse what
-they do not serve: a missing GPU without --no_cuda, an unknown model name,
-and the flags of parts not yet ported."""
+"""The PyTorch port imports no JAX, and its CLIs refuse what they do not
+serve: a missing GPU without --no_cuda, an unknown model name, DANN in the
+train CLI, and the flags of parts not yet ported."""
 import os
 import subprocess
 import sys
@@ -8,8 +8,8 @@ import sys
 import pytest
 import torch
 
+from speedplusbaseline_tpu_torch import adapt, preprocess, train
 from speedplusbaseline_tpu_torch import test as test_cli
-from speedplusbaseline_tpu_torch import train
 from speedplusbaseline_tpu_torch.config import parse_cfg, resolve_device
 
 torch.set_num_threads(1)
@@ -41,7 +41,9 @@ def test_port_imports_no_jax():
     assert {p + m for m in ("geometry.epnp", "geometry.quaternion", "geometry.projection",
                             "geometry._eigh", "geometry._precision", "metrics.pose_score",
                             "test", "io_utils.misc", "io_utils.visualize",
-                            "geometry.spn_position", "models.spn", "models.build")} <= mods
+                            "geometry.spn_position", "models.spn", "models.build",
+                            "models.revgrad", "adapt", "preprocess", "data.preprocess",
+                            "data.synthetic")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -58,15 +60,28 @@ def test_test_cli_raises_without_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--perform_dann"], ["--model_name", "spn", "--perform_dann"], ["--num_devices", "2"],
-    ["--profile_dir", "prof"], ["--use_native_loader"], ["--cache_dir", "cache"],
+    ["--num_devices", "2"], ["--profile_dir", "prof"], ["--use_native_loader"],
+    ["--cache_dir", "cache"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
-    """Both CLIs refuse each flag."""
-    for main in (train.main, test_cli.main):
+    """The three CLIs refuse each flag."""
+    for main in (train.main, test_cli.main, adapt.main):
         with pytest.raises(NotImplementedError):
-            main(flags + ["--no_cuda", "--savedir", str(tmp_path / "s"),
-                          "--logdir", str(tmp_path / "l")])
+            main(flags + ["--perform_dann"] * (main is adapt.main)
+                 + ["--no_cuda", "--savedir", str(tmp_path / "s"), "--logdir", str(tmp_path / "l")])
+
+
+def test_train_cli_sends_dann_to_adapt(tmp_path):
+    """DANN trains through the adapt CLI; the train CLI says so."""
+    with pytest.raises(ValueError, match="speedplusbaseline_tpu_torch.adapt"):
+        train.main(["--perform_dann", "--no_cuda", "--savedir", str(tmp_path / "s"),
+                    "--logdir", str(tmp_path / "l")])
+
+
+def test_preprocess_cli_raises_without_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        preprocess.main(["--dataroot", str(tmp_path)])
 
 
 def test_unknown_model_name_raises(tmp_path):

@@ -46,7 +46,7 @@ from speedplusbaseline_tpu_torch.data import SPNDataset
 from speedplusbaseline_tpu_torch.engine import (TrainState, build_optimizer, clip_gradients,
                                                 make_spn_eval_step, spn_step)
 from speedplusbaseline_tpu_torch.geometry import compute_position_spn_batched
-from speedplusbaseline_tpu_torch.models import get_model
+from speedplusbaseline_tpu_torch.models import RevGrad, get_model
 from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
 from speedplusbaseline_tpu_torch.models.layers import LocalResponseNorm
 from speedplusbaseline_tpu_torch.models.spn import SpacecraftPoseNet, dropout, spn_loss
@@ -462,8 +462,10 @@ def test_get_model_builds_each_model():
     assert isinstance(get_model(cfg), SpacecraftPoseNet)
     cfg.model_name = "krn"
     assert not isinstance(get_model(cfg), SpacecraftPoseNet)
-    cfg.dann = True
-    with pytest.raises(NotImplementedError):
+    cfg.dann = True  # DANN: KRN inside RevGrad, and for KRN only
+    assert isinstance(get_model(cfg), RevGrad)
+    cfg.model_name = "spn"
+    with pytest.raises(ValueError):
         get_model(cfg)
     cfg.model_name, cfg.dann = "foo", False
     with pytest.raises(ValueError):
