@@ -49,7 +49,22 @@ Phases, each printing its own lines:
                 steps with a validation of the 64 lightbox rows, then the
                 test CLI with --perform_dann scores its model_best.pt (the
                 two must agree); B1 and B2 must launch 0 times;
-  9. resident, eval, spn_eval -- per model, the styled and plain train steps
+  9. pretrained -- the train CLI on converted pretrained assets: seeded
+                torchvision-layout MobileNetV2, bvlc_alexnet and
+                checkpoint_transformer weights go through the convert_weights
+                CLI into an assets directory that SPEEDPLUS_ASSETS_DIR names;
+                3 styled KRN steps at 224^2 and 2 styled SPN steps at 227^2
+                (batch 48, bf16) must log the loads, start from the converted
+                base / conv1-5 bit for bit, hold the converted Ghiasi convs in
+                B1's HWIO buffers and launch B1 and B2; then the generator on
+                those weights, kernels against plain;
+ 10. style_predictor -- the embedding CLI at its defaults (320x480, batch 8,
+                f32) over 64 generated 640x400 frames with a seeded
+                checkpoint_stylepredictor.pth converted by the convert_weights
+                CLI, on the card and with --no_cuda (the three files must
+                agree; B1 and B2 launch 0 times), and the StylePredictor's
+                device time per batch of 8;
+ 11. resident, eval, spn_eval -- per model, the styled and plain train steps
                 on a resident batch (host clock, and device busy time by
                 torch.profiler), and the eval step (forward, geometry) as
                 device time and on the host clock; the DANN step on resident
@@ -61,6 +76,7 @@ result lines. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import statistics
@@ -377,17 +393,14 @@ def phase_kernels(dev):
     return report
 
 
-def phase_ghiasi(dev):
-    """The whole generator with the asset weights: kernels on the card, in f32
-    and in bf16 (the main path's dtype), vs the plain f32 version on the
-    CPU."""
+def phase_ghiasi(dev, sd, weights: str):
+    """The whole generator with the state dict ``sd`` (``weights`` names it):
+    kernels on the card, in f32 and in bf16 (the main path's dtype), vs the
+    plain f32 version on the CPU."""
     import torch
 
-    from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
-    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
     from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
 
-    sd = load_ghiasi_params(os.path.join(default_assets_dir(), "ghiasi_params.msgpack"))
     net_cpu = Ghiasi().eval()
     net_cpu.load_state_dict(sd)
     g = torch.Generator().manual_seed(1)
@@ -400,7 +413,8 @@ def phase_ghiasi(dev):
         net_gpu.load_state_dict(sd)
         with torch.no_grad():
             got = net_gpu(x.to(dev), st.to(dev)).float().cpu()
-        name = f"Ghiasi (2, 3, 224, 224) {str(dtype)[6:]}, card kernels vs CPU plain f32"
+        name = (f"Ghiasi (2, 3, 224, 224) {str(dtype)[6:]}, {weights}, card kernels vs CPU "
+                "plain f32")
         compare(name, got, ref, tol)
         mean_err = (got - ref).abs().mean().item()
         print(f"  {name}: mean_abs_err {mean_err:.3e}", flush=True)
@@ -953,6 +967,382 @@ def phase_dann(dev):
     return launches
 
 
+def torchvision_mobilenet_v2(g):
+    """A seeded state_dict in torchvision ``mobilenet_v2``'s layout: the stem
+    features.0, the 17 inverted residuals, the final 1280-channel conv
+    (features.18) and the classifier, with ``num_batches_tracked``."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.models.mobilenetv2 import _IR_SETTINGS
+
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[f"{name}.weight"] = torch.randn(o, i, k, k, generator=g) * (2.0 / (i * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("features.0.0", 32, 3, 3)
+    bn("features.0.1", 32)
+    in_ch, idx = 32, 1
+    for t, c, n, _ in _IR_SETTINGS:
+        for _ in range(n):
+            hidden, base, i = in_ch * t, f"features.{idx}.conv", int(t != 1)
+            if t != 1:
+                conv(f"{base}.0.0", hidden, in_ch, 1)
+                bn(f"{base}.0.1", hidden)
+            conv(f"{base}.{i}.0", hidden, 1, 3)
+            bn(f"{base}.{i}.1", hidden)
+            conv(f"{base}.{i + 1}", c, hidden, 1)
+            bn(f"{base}.{i + 2}", c)
+            in_ch, idx = c, idx + 1
+    conv("features.18.0", 1280, 320, 1)
+    bn("features.18.1", 1280)
+    sd["classifier.1.weight"] = torch.randn(1000, 1280, generator=g) * 0.01
+    sd["classifier.1.bias"] = torch.zeros(1000)
+    return sd
+
+
+def bvlc_alexnet(rs):
+    """A seeded ``bvlc_alexnet.npy`` dict: per conv [HWIO kernel, bias]; the
+    grouped conv2, conv4 and conv5 hold I/g input channels."""
+    import numpy as np
+
+    shapes = {"conv1": (11, 11, 3, 96), "conv2": (5, 5, 48, 256), "conv3": (3, 3, 256, 384),
+              "conv4": (3, 3, 192, 384), "conv5": (3, 3, 192, 256)}
+    return {name: [(rs.randn(*s) * (2.0 / np.prod(s[:3])) ** 0.5).astype(np.float32),
+                   (rs.randn(s[-1]) * 0.1).astype(np.float32)] for name, s in shapes.items()}
+
+
+def checkpoint_transformer(seed: int):
+    """A seeded ``checkpoint_transformer.pth`` payload: the Ghiasi
+    generator's state_dict under the reference's ``layers.N.*`` keys."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+
+    torch.manual_seed(seed)
+    sd = {k.replace("layer", "layers.", 1): v for k, v in Ghiasi().state_dict().items()}
+    return {"state_dict_ghiasi": sd}
+
+
+def checkpoint_stylepredictor(seed: int):
+    """A seeded ``checkpoint_stylepredictor.pth`` payload: the reference's
+    names, He-scaled convs (so that the embedding still depends on the image
+    after about 50 layers), BN statistics away from 0 / 1,
+    ``num_batches_tracked``."""
+    import torch
+
+    from speedplusbaseline_tpu_torch.models.style_predictor import StylePredictor
+
+    torch.manual_seed(seed)
+    sd = {}
+    for k, v in StylePredictor().state_dict().items():
+        if k.endswith("conv.weight"):
+            v = torch.randn(v.shape) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith(("running_mean", "bn.bias")):
+            v = 0.1 * torch.randn(v.shape)
+        elif k.endswith("running_var"):
+            v = 0.5 + torch.rand(v.shape)
+        sd[k] = v
+        if k.endswith("running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return {"state_dict_stylepredictor": sd}
+
+
+class _Capture:
+    """Wraps the train CLI's ``train_epoch`` and ``_style_augmentor`` for
+    one run: the model's state_dict when the first epoch starts (before the
+    first step) and the style augmentor it built. Restores both on exit."""
+
+    def __init__(self, train):
+        self.train, self.model_at_start, self.aug = train, None, None
+
+    def __enter__(self):
+        t = self.train
+        self.epoch, self.style = t.train_epoch, t._style_augmentor
+
+        def epoch(n, cfg, state, *a, **k):
+            if self.model_at_start is None:
+                self.model_at_start = {key: v.detach().cpu().clone()
+                                       for key, v in state.model.state_dict().items()}
+            return self.epoch(n, cfg, state, *a, **k)
+
+        def style(*a, **k):
+            self.aug = self.style(*a, **k)
+            return self.aug
+
+        t.train_epoch, t._style_augmentor = epoch, style
+        return self
+
+    def __exit__(self, *exc):
+        self.train.train_epoch, self.train._style_augmentor = self.epoch, self.style
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase_pretrained(dev, card: str):
+    """The train CLI from disk on converted pretrained assets: seeded
+    torchvision-layout MobileNetV2, bvlc_alexnet and checkpoint_transformer
+    weights, converted by the convert_weights CLI into an assets directory
+    (with the repo's eval and style-embedding assets) that
+    SPEEDPLUS_ASSETS_DIR names; then 3 styled KRN steps at 224^2 and 2
+    styled SPN steps at 227^2, batch 48, bf16. Checks the two log lines,
+    that the base / conv1-5 before the first step are the converted
+    tensors bit for bit, that B1's HWIO buffers hold the converted Ghiasi
+    convs, that B1 and B2 launched and the losses are finite; then the
+    generator on the converted weights, kernels against plain. Returns the
+    kernel launches of both runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch import convert_weights, train
+    from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
+    from speedplusbaseline_tpu_torch.convert import flax_to_state_dict, read_flax_msgpack
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+    from speedplusbaseline_tpu_torch.models import weight_convert
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    launches = {}
+    log = _Lines()
+    wc_logger = logging.getLogger(weight_convert.__name__)
+    wc_logger.addHandler(log)
+    env = os.environ.get("SPEEDPLUS_ASSETS_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        repo_assets, assets = default_assets_dir(), os.path.join(tmp, "assets")
+        os.makedirs(assets)
+        for f in ("tango_points.npy", "attitude_classes.npy", "style_embedding_pbn_cov.npy",
+                  "style_embedding_pbn_mean.npy", "style_embedding_speedplus_mean.npy"):
+            shutil.copy(os.path.join(repo_assets, f), assets)
+        g = torch.Generator().manual_seed(31)
+        mnv2 = torchvision_mobilenet_v2(g)
+        transformer = checkpoint_transformer(32)
+        bvlc = bvlc_alexnet(np.random.RandomState(33))
+        torch.save(mnv2, os.path.join(tmp, "mobilenet_v2.pth"))
+        torch.save(transformer, os.path.join(tmp, "checkpoint_transformer.pth"))
+        np.save(os.path.join(assets, "bvlc_alexnet.npy"), bvlc, allow_pickle=True)
+        for target, src, out in (("mobilenet_v2", "mobilenet_v2.pth",
+                                  "mobilenetv2_backbone.msgpack"),
+                                 ("ghiasi", "checkpoint_transformer.pth",
+                                  "ghiasi_params.msgpack")):
+            convert_weights.main([target, "--src", os.path.join(tmp, src), "--out",
+                                  os.path.join(assets, out)])
+        raw = read_flax_msgpack(os.path.join(assets, "mobilenetv2_backbone.msgpack"))
+        backbone = flax_to_state_dict(raw["params"], raw["batch_stats"])
+        direct = weight_convert.convert_mobilenet_v2(mnv2)
+        if backbone.keys() != direct.keys() or not all(torch.equal(backbone[k], direct[k])
+                                                       for k in direct):
+            fail("pretrained: the backbone file differs from convert_mobilenet_v2's tensors")
+        ghiasi_sd = load_ghiasi_params(os.path.join(assets, "ghiasi_params.msgpack"))
+        expected = {"krn": {f"base.{k}": v for k, v in backbone.items()},
+                    "spn": weight_convert.convert_bvlc_alexnet(bvlc)}
+        os.environ["SPEEDPLUS_ASSETS_DIR"] = assets
+        try:
+            for model, side, steps, extra, losses, line in (
+                    ("krn", S, 3, [], ("loss_x", "loss_y"),
+                     "MobileNetV2 ImageNet backbone loaded from"),
+                    ("spn", SPN_S, 2, ["--num_classes", str(SPN_CLASSES)], ("loss_c", "loss_r"),
+                     "bvlc_alexnet conv1-5 loaded from")):
+                root = os.path.join(tmp, model)
+                write_dataset(root, model, steps * B)
+                argv = ["--dataroot", root, "--model_name", model, "--input_shape", str(side),
+                        str(side), "--use_fp16", "--num_workers", "8", "--savedir",
+                        os.path.join(root, "save"), "--logdir", os.path.join(root, "log"),
+                        "--batch_size", str(B), "--optimizer", "adamw", "--lr", "0.001",
+                        "--weight_decay", "0.01", "--randomize_texture", "--texture_ratio",
+                        "1.0", "--max_epochs", "1", "--start_over"] + extra
+                log.lines.clear()
+                wc_logger.setLevel(logging.INFO)
+                _build.reset_launches()
+                t0 = time.time()
+                with _Capture(train) as seen:
+                    records = train.main(argv)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                n = dict(_build.launches)
+                print("", flush=True)
+                if not any(m.startswith(line) for m in log.lines):
+                    fail(f"pretrained {model}: no log line {line!r} in {log.lines}")
+                start = seen.model_at_start
+                bad = [k for k, v in expected[model].items() if not torch.equal(start[k], v)]
+                if bad:
+                    fail(f"pretrained {model}: {len(bad)} tensors before the first step differ "
+                         f"from the converted ones, e.g. {bad[:3]}")
+                res = [(f"layer{i}", j) for i in range(3, 8) for j in (1, 2)]
+                for layer, j in res:
+                    hwio = getattr(getattr(seen.aug.ghiasi, layer), f"w{j}_hwio").cpu()
+                    if not torch.equal(hwio, ghiasi_sd[f"{layer}.conv{j}.weight"]
+                                       .permute(2, 3, 1, 0)):
+                        fail(f"pretrained {model}: B1's {layer}.w{j}_hwio is not the "
+                             "converted conv")
+                aug_sd = seen.aug.ghiasi.state_dict()
+                if not all(torch.equal(aug_sd[k].cpu(), v) for k, v in ghiasi_sd.items()):
+                    fail(f"pretrained {model}: the generator's weights are not the converted ones")
+                if len(records) != steps:
+                    fail(f"pretrained {model} ran {len(records)} steps, expected {steps}")
+                loss = [sum(r[k] for k in losses) for r in records]
+                if not all(np.isfinite(loss)):
+                    fail(f"pretrained {model}: non-finite loss in {loss}")
+                if (n["ghiasi_resblock"] < B1_CALLS_PER_STEP * steps
+                        or n["instance_norm_film"] < 6 * steps):
+                    fail(f"pretrained {model}: kernel launches {n} too few for {steps} styled "
+                         "steps")
+                print(f"phase pretrained: {model} at {side}^2 from the converted assets: "
+                      f"{line} ...; {len(expected[model])} tensors before the first step equal "
+                      f"the converted ones bit for bit; B1's {len(res)} HWIO buffers hold the "
+                      f"converted Ghiasi convs; {steps} styled steps, losses "
+                      f"{[round(v, 4) for v in loss]} ({' + '.join(losses)}), launches {n}, "
+                      f"wall {wall:.1f} s incl. set-up", flush=True)
+                for k, v in n.items():
+                    launches[k] = launches.get(k, 0) + v
+        finally:
+            wc_logger.removeHandler(log)
+            if env is None:
+                os.environ.pop("SPEEDPLUS_ASSETS_DIR", None)
+            else:
+                os.environ["SPEEDPLUS_ASSETS_DIR"] = env
+    phase_ghiasi(dev, ghiasi_sd, "converted checkpoint_transformer weights")
+    return launches
+
+
+# The embedding CLI on the card against --no_cuda: the embeddings and their
+# mean within this share of the largest embedding (f32 on both; the same
+# convs summed in another order through about 50 layers); the covariance
+# within what that allows (embed_tols).
+TOL_EMBED = 1e-5
+EMBED_FILES = ("embeddings_speedplus.npy", "style_embedding_speedplus_mean.npy",
+               "embedding_covariance_speedplus.npy")
+STYLE_IMAGES, STYLE_BATCH, STYLE_HW = 64, 8, (320, 480)
+
+
+def embed_tols(emb, share: float):
+    """Tolerances of the three embedding files from the reference embeddings
+    ``emb`` (N, 100): ``share`` of the largest for the embeddings and their
+    mean (d); for the covariance, what an error of d in each embedding
+    allows: a deviation from the mean moves by at most 2d, so each product
+    of two by at most 4 d |dev| + 4 d^2, over N / (N - 1)."""
+    import numpy as np
+
+    d = share * float(np.abs(emb).max())
+    dev = float(np.abs(emb - emb.mean(axis=0)).max())
+    n = emb.shape[0]
+    return d, d, (4 * d * dev + 4 * d * d) * n / (n - 1)
+
+
+def style_predictor_kernels(forward, calls: int = 3, rows: int = 8) -> None:
+    """Print the device kernels of the StylePredictor's forward by device
+    time (torch.profiler over ``calls`` calls): ms and launches a batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            forward()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    print(f"  style_predictor: device busy {busy:.3f} ms a batch of {STYLE_BATCH} "
+          f"(torch.profiler, {calls} calls), {sum(e.count for e in events) // calls} kernels; "
+          f"the {rows} largest:", flush=True)
+    for e in events[:rows]:
+        print(f"    {e.self_device_time_total / 1e3 / calls:8.3f} ms  {e.count // calls:4d}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def phase_style_predictor(dev, card: str):
+    """The embedding CLI at its defaults (320x480, batch 8, f32) over 64
+    generated 640x400 frames, with a seeded checkpoint_stylepredictor.pth
+    converted by the convert_weights CLI, on the card and with --no_cuda:
+    the three files must agree. Then the StylePredictor's device time per
+    batch of 8 (CUDA events) and the CLI's img/s. Returns the kernel
+    launches of the card run (B1 and B2 have no part in it)."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch import convert_weights, embedding
+    from speedplusbaseline_tpu_torch.data import generate_fake_speedplus
+    from speedplusbaseline_tpu_torch.models.style_predictor import StylePredictor
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        t0 = time.time()
+        generate_fake_speedplus(images, num_train=STYLE_IMAGES, num_test=0, width=640,
+                                height=400, domains=("synthetic",), device=dev)
+        print(f"phase style_predictor: {STYLE_IMAGES} frames of 640x400 written in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        pth, ckpt = os.path.join(tmp, "sp.pth"), os.path.join(tmp, "style_predictor.msgpack")
+        torch.save(checkpoint_stylepredictor(34), pth)
+        convert_weights.main(["style_predictor", "--src", pth, "--out", ckpt])
+        common = ["--data_dir", images, "--checkpoint", ckpt]
+        _build.reset_launches()
+        t0 = time.time()
+        emb = embedding.main(common + ["--out_dir", os.path.join(tmp, "card")])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_build.launches)
+        t0 = time.time()
+        embedding.main(common + ["--out_dir", os.path.join(tmp, "cpu"), "--no_cuda"])
+        cpu_wall = time.time() - t0
+        if emb.shape != (STYLE_IMAGES, 100) or not np.isfinite(emb).all():
+            fail(f"style_predictor: embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+        files = {f: [np.load(os.path.join(tmp, d, f)) for d in ("card", "cpu")]
+                 for f in EMBED_FILES}
+        tols = embed_tols(files[EMBED_FILES[0]][1], TOL_EMBED)
+        errs = {}
+        for f, tol in zip(EMBED_FILES, tols):
+            got, ref = files[f]
+            errs[f] = err = float(np.abs(got - ref).max())
+            print(f"  style_predictor {f}: card vs --no_cuda max_abs_err {err:.3e} (tol "
+                  f"{tol:.3e}; largest value {float(np.abs(ref).max()):.3e})", flush=True)
+            if got.shape != ref.shape or not err <= tol:
+                fail(f"style_predictor: {f} differs between the card and the CPU")
+        spread = float(emb.std(axis=0).max())
+        print(f"  style_predictor: the embeddings' largest std across the {STYLE_IMAGES} "
+              f"images {spread:.3e}", flush=True)
+        if not spread > 10 * errs[EMBED_FILES[0]]:
+            fail("style_predictor: the embeddings hardly depend on the image")
+        if any(launches.values()):
+            fail(f"style_predictor: B1 and B2 have no part in it, but launched {launches}")
+
+        model = StylePredictor()
+        model.load_state_dict(embedding.load_style_predictor(ckpt))
+        model = model.to(dev).eval()
+        x = torch.rand(STYLE_BATCH, 3, *STYLE_HW, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(8))
+
+        def forward():
+            with torch.inference_mode():
+                return model(x)
+
+        ms = time_ms(forward, reps=20)
+        style_predictor_kernels(forward)
+    print(f"phase style_predictor: embedding CLI at {STYLE_HW[0]}x{STYLE_HW[1]}, batch "
+          f"{STYLE_BATCH}, f32 (TF32 off) on {card}: {STYLE_IMAGES} images in {wall:.2f} s = "
+          f"{STYLE_IMAGES / wall:.1f} img/s incl. model set-up and image decode (--no_cuda "
+          f"{cpu_wall:.2f} s); StylePredictor forward {ms:.3f} ms a batch of {STYLE_BATCH} "
+          f"= {STYLE_BATCH * 1000 / ms:.1f} img/s of device time (CUDA events, device held); "
+          f"launches {launches}", flush=True)
+    return launches
+
+
 def phase_resident_dann(dev) -> None:
     """The DANN step on resident batches of 16 + 16 at 224^2, RMSprop, in f32
     (the README adapt recipe) and in bf16: host clock and device busy time."""
@@ -1137,12 +1527,18 @@ def main() -> None:
         fail("B1 holds no tensor-core (HGMMA) instruction")
 
     report = phase_kernels(dev)
-    phase_ghiasi(dev)
+    from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+
+    phase_ghiasi(dev, load_ghiasi_params(os.path.join(default_assets_dir(),
+                                                      "ghiasi_params.msgpack")), "asset weights")
     phase_geometry(dev)
     phase_spn_geometry(dev)
     launches = {"krn": phase_main(dev, "krn", 6), "spn": phase_main(dev, "spn", 4)}
     phase_grl(dev)
     launches["dann"] = phase_dann(dev)
+    launches["pretrained"] = phase_pretrained(dev, card)
+    launches["style_predictor"] = phase_style_predictor(dev, card)
     for model in ("krn", "spn"):
         phase_resident(dev, model)
         phase_eval(dev, model)
@@ -1168,9 +1564,10 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the three "
-          "main paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle), "
-          "launches_by_path each; B1's bound_ms counts "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the five "
+          "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
+          "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "
+          "CLI, which has none), launches_by_path each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

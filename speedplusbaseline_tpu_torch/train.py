@@ -2,7 +2,9 @@
 
 Follows the JAX package's ``train.py`` (reference train.py:49-158): seed,
 savedir/logdir, config.txt snapshot, model (``--model_name krn|spn``) +
-optional StyleAugmentor, optimizer + StepLR, auto-resume, loaders, then per
+optional StyleAugmentor, optimizer + StepLR, auto-resume, the pretrained
+weights of the assets directory when the run starts at epoch 0
+(``models/weight_convert.py::maybe_load_pretrained``), loaders, then per
 epoch train -> validate every ``--test_epoch`` epochs -> checkpoint. SPN
 loads the attitude classes (``--attitude_class``), whose count must equal
 ``--num_classes``. Unlike the JAX trainer, the test loader, the Tango points
@@ -39,6 +41,7 @@ from .io_utils import (SummaryWriter, checkpoint_exists, default_assets_dir,
                        load_tango_3d_keypoints, save_checkpoint, setup_logger)
 from .io_utils.checkpoint import CKPT_NAME
 from .models.build import get_model
+from .models.weight_convert import maybe_load_pretrained
 
 logger = logging.getLogger(__name__)
 
@@ -130,6 +133,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         state.restore(ckpt)
         begin_epoch = int(ckpt["epoch"])
         best_perf = begin_epoch
+    # Pretrained init (reference park2019.py:107 / spn.py:101-123), from the
+    # converted assets when present, as the JAX trainer (train.py:131-136).
+    if begin_epoch == 0 and maybe_load_pretrained(cfg, model, default_assets_dir()):
+        # load_state_dict copied in place: the optimizer still holds the model's parameters.
+        held = [p for group in state.optimizer.param_groups for p in group["params"]]
+        assert len(held) == len(list(model.parameters())) and all(
+            a is b for a, b in zip(held, model.parameters()))
     if cfg.fp16:
         logger.info("bf16 autocast enabled (f32 parameters, no loss scaling)")
 

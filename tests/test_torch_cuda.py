@@ -220,3 +220,24 @@ def test_spn_pose_on_card_matches_cpu(dev):
     assert torch.isfinite(q_gpu).all() and torch.isfinite(t_gpu).all()
     assert (q_gpu * sign - q_cpu).abs().max() <= 1e-4
     assert (t_gpu - t_cpu).abs().max() <= 1e-3
+
+
+def test_style_predictor_on_card_matches_cpu(dev):
+    """The StylePredictor's eval forward in f32 (TF32 off) at batch 8 and the
+    embedding CLI's 320x480, cuDNN on the card against the CPU, within 1e-4
+    of the output's scale (the same f32 convs summed in another order)."""
+    from speedplusbaseline_tpu_torch.models.style_predictor import StylePredictor
+
+    torch.manual_seed(0)
+    model = StylePredictor().eval()
+    rs = np.random.RandomState(2)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rs.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
+    x = torch.from_numpy(rs.rand(8, 3, 320, 480).astype(np.float32))
+    with torch.inference_mode():
+        ref = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert got.shape == (8, 100) and torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max().item())

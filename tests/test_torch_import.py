@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-from speedplusbaseline_tpu_torch import adapt, preprocess, train
+from speedplusbaseline_tpu_torch import adapt, convert_weights, embedding, preprocess, train
 from speedplusbaseline_tpu_torch import test as test_cli
 from speedplusbaseline_tpu_torch.config import parse_cfg, resolve_device
 
@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                             "test", "io_utils.misc", "io_utils.visualize",
                             "geometry.spn_position", "models.spn", "models.build",
                             "models.revgrad", "adapt", "preprocess", "data.preprocess",
-                            "data.synthetic")} <= mods
+                            "data.synthetic", "models.weight_convert", "models.style_predictor",
+                            "embedding", "convert_weights")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -82,6 +83,28 @@ def test_preprocess_cli_raises_without_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--no_cuda"):
         preprocess.main(["--dataroot", str(tmp_path)])
+
+
+def test_embedding_and_convert_clis_raise_without_gpu(monkeypatch, tmp_path):
+    """Both run on the card unless given --no_cuda; with it, on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "img").mkdir()
+    from PIL import Image
+
+    Image.new("RGB", (64, 48)).save(tmp_path / "img" / "a.png")
+    args = ["--data_dir", str(tmp_path / "img"), "--batchsize", "1", "--input_size", "48",
+            "64", "--allow_random_init", "--out_dir", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        embedding.main(args)
+    assert embedding.main(args + ["--no_cuda"]).shape == (1, 100)
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+
+    torch.save({"state_dict_ghiasi": {k.replace("layer", "layers.", 1): v for k, v in
+                                      Ghiasi().state_dict().items()}}, tmp_path / "g.pth")
+    args = ["ghiasi", "--src", str(tmp_path / "g.pth"), "--out", str(tmp_path / "g.msgpack")]
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        convert_weights.main(args)
+    assert convert_weights.main(args + ["--no_cuda"]) == str(tmp_path / "g.msgpack")
 
 
 def test_unknown_model_name_raises(tmp_path):
