@@ -64,7 +64,17 @@ Phases, each printing its own lines:
                 CLI, on the card and with --no_cuda (the three files must
                 agree; B1 and B2 launch 0 times), and the StylePredictor's
                 device time per batch of 8;
- 11. resident, eval, spn_eval -- per model, the styled and plain train steps
+ 11. data     -- the from-disk data path: a dataset of one 1920x1200 JPEG a
+                row (288 train + 100 test), cached at 512 px by the
+                cache_dataset CLI; the loader alone for one epoch (batch 48,
+                224^2, 8 threads) from full frames and from the cache through
+                cv2 (and through the native decode core, where the machine
+                can build it: NATIVE_ON_CARD); the styled KRN trainer (6
+                steps) from the cache with its validation and the test CLI,
+                as in phase main; every cached eval crop against the
+                full-frame one; a 2-epoch run with --profile_dir whose trace
+                must name B1's and B2's device kernels;
+ 12. resident, eval, spn_eval -- per model, the styled and plain train steps
                 on a resident batch (host clock, and device busy time by
                 torch.profiler), and the eval step (forward, geometry) as
                 device time and on the host clock; the DANN step on resident
@@ -150,6 +160,29 @@ EVAL_ROWS = 100
 # the generator writes, and the reversal coefficient of phase grl.
 DANN_B, DANN_ROWS, GRL_ALPHA = 16, 64, 0.37
 TOL_GRL = 1e-6  # relative
+# Phase data: the cache's side, the styled steps from the cache, and the
+# loader's four configurations (name, --cache_dir, --use_native_loader).
+# The cached paths' eval crops against the full-frame path: the crop box in
+# original pixels is within 1 + 1/scale px of the full-frame one, where scale
+# is the row's cache scale (crop_params truncates each edge to a whole pixel
+# of the image it crops: one original pixel in the full frame, 1/scale of
+# them in the cache); each crop's mean |difference| from the full frame
+# cropped at the same box is within 0.02 of full scale (the cache's
+# downscale, its JPEG re-encode and the two resizes).
+CACHE_SIZE, DATA_STEPS = 512, 6
+# The H100 machine the port is checked on has neither libjpeg's headers nor
+# its library (``#include <jpeglib.h>`` fails, ``ldconfig -p`` lists no
+# libjpeg), so the native decode core cannot be built there, and
+# --use_native_loader raises RuntimeError with the compiler's message. With
+# NATIVE_ON_CARD False, phase data leaves the loader's two native
+# configurations out and trains from the cache alone.
+NATIVE_ON_CARD = False
+LOADER_CONFIGS = tuple(c for c in (("full-frame cv2", False, False), ("native", False, True),
+                                   ("cache", True, False), ("cache + native", True, True))
+                       if NATIVE_ON_CARD or not c[2])
+TOL_EVAL_CROP = 0.02
+# Device kernels of B1 and B2 by name, as a profiler trace holds them.
+B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
 
 
 def fail(msg: str) -> None:
@@ -778,56 +811,242 @@ def phase_main(dev, model: str, steps: int):
     """The styled trainer of ``model`` from disk at full width, batch 48,
     AdamW, bf16, validating EVAL_ROWS rows after its epoch, then the test CLI
     on its model_best.pt; the two evaluations must agree. Returns the kernel
-    launches of the training run."""
+    launches of the training run and its step times (train_from_disk)."""
+    phase = MAIN[model][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        write_dataset(tmp, model, steps * B)
+        print(f"phase {phase}: dataset of {steps * B} rows written in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        return train_from_disk(phase, tmp, model, steps, [])
+
+
+def train_from_disk(phase: str, tmp: str, model: str, steps: int, extra):
+    """The styled trainer (``train.main``) of ``model`` on the dataset in
+    tmp with the ``extra`` flags, then check_validation_and_test_cli with
+    them. Returns the training run's kernel launches and its times in ms:
+    the median step after the first ("step"), the epoch's wall a step
+    ("epoch") and the epoch's wall after its first step, a step ("after_first";
+    the first step holds the process's first calls to cuDNN and the kernels)."""
     import numpy as np
     import torch
 
     from speedplusbaseline_tpu_torch import train
     from speedplusbaseline_tpu_torch.ops import _build
 
-    phase, side, extra, losses = MAIN[model]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        write_dataset(tmp, model, steps * B)
-        print(f"phase {phase}: dataset of {steps * B} rows written in "
-              f"{time.time() - t0:.1f} s", flush=True)
-        common = ["--dataroot", tmp, "--model_name", model, "--input_shape", str(side),
-                  str(side), "--use_fp16", "--num_workers", "8", "--eval_batch_size",
-                  str(B)] + extra
-        argv = common + ["--savedir", os.path.join(tmp, "save"),
-                         "--logdir", os.path.join(tmp, "log"), "--batch_size", str(B),
-                         "--optimizer", "adamw", "--lr", "0.001", "--weight_decay", "0.01",
-                         "--randomize_texture", "--texture_ratio", "1.0",
-                         "--max_epochs", "1", "--start_over", "--test_epoch", "1"]
+    side, flags, losses = MAIN[model][1:]
+    common = ["--dataroot", tmp, "--model_name", model, "--input_shape", str(side),
+              str(side), "--use_fp16", "--num_workers", "8", "--eval_batch_size",
+              str(B)] + flags + extra
+    argv = common + ["--savedir", os.path.join(tmp, "save"),
+                     "--logdir", os.path.join(tmp, "log"), "--batch_size", str(B),
+                     "--optimizer", "adamw", "--lr", "0.001", "--weight_decay", "0.01",
+                     "--randomize_texture", "--texture_ratio", "1.0",
+                     "--max_epochs", "1", "--start_over", "--test_epoch", "1"]
+    epoch_s = []
+    train_epoch = train.train_epoch
+
+    def timed_epoch(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = train_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    train.train_epoch = timed_epoch
+    try:
         _build.reset_launches()
         t0 = time.time()
         records = train.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(_build.launches)
+    finally:
+        train.train_epoch = train_epoch
+    print("", flush=True)
+    if len(records) != steps:
+        fail(f"{phase} ran {len(records)} steps, expected {steps}")
+    loss = [sum(r[k] for k in losses) for r in records]
+    if not all(np.isfinite(loss)):
+        fail(f"{phase}: non-finite loss in {loss}")
+    if not all(r["styled"] for r in records):
+        fail(f"{phase}: texture_ratio 1.0 left a step unstyled")
+    for f in ("checkpoint.pt", "model_best.pt"):
+        if not os.path.exists(os.path.join(tmp, "save", f)):
+            fail(f"{phase}: no {f} written")
+    if (launches["ghiasi_resblock"] < B1_CALLS_PER_STEP * steps
+            or launches["instance_norm_film"] < 6 * steps):
+        fail(f"{phase}: kernel launches {launches} too few for {steps} styled steps")
+    ms = [r["ms"] for r in records[1:]]
+    step_ms = statistics.median(ms)
+    times = {"step": step_ms, "epoch": epoch_s[0] * 1000 / steps,
+             "after_first": (epoch_s[0] * 1000 - records[0]["ms"]) / (steps - 1)}
+    print(f"phase {phase}: {steps} styled {model} steps at {side}^2, losses "
+          f"{[round(v, 4) for v in loss]} ({' + '.join(losses)}), launches {launches}, "
+          f"wall {wall:.1f} s incl. set-up", flush=True)
+    print(f"phase {phase}: step ms after the first {[round(v, 2) for v in ms]}; median "
+          f"{step_ms:.2f} ms = {B * 1000 / step_ms:.1f} img/s (from disk, "
+          f"8 loader threads); the epoch's wall {times['epoch']:.2f} ms a step, "
+          f"{times['after_first']:.2f} ms a step after the first", flush=True)
+    check_validation_and_test_cli(phase, tmp, common, losses, EVAL_ROWS, "trainer")
+    return launches, times
+
+
+def mean_abs_diff(a, b) -> float:
+    """Mean |a - b| of two uint8 images, in units of full scale."""
+    import numpy as np
+
+    return float(np.abs(a.astype(np.float32) - b.astype(np.float32)).mean() / 255)
+
+
+def full_frame_crop(path: str, box):
+    """The RGB crop of the full frame at ``box`` [xmin, xmax, ymin, ymax]
+    (original pixels, rounded), resized to S x S as the cv2 path resizes."""
+    import cv2
+
+    img = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+    x0, x1, y0, y1 = (int(round(float(v))) for v in box)
+    return cv2.resize(img[y0:y1, x0:x1], (S, S), interpolation=cv2.INTER_LINEAR)
+
+
+def phase_data(dev, main_times):
+    """The from-disk data path: the cache_dataset CLI caches a dataset of
+    one 1920x1200 JPEG a row; the loader alone in LOADER_CONFIGS; the styled
+    KRN trainer from the cache (through the native core where NATIVE_ON_CARD)
+    with its validation and the test CLI; the cached eval crops against the
+    full-frame ones; a 2-epoch run with --profile_dir whose trace must name
+    B1 and B2. Returns the trainer's kernel launches."""
+    import cv2
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from speedplusbaseline_tpu_torch import cache_dataset, train
+    from speedplusbaseline_tpu_torch.config import default_cfg
+    from speedplusbaseline_tpu_torch.data import KRNDataset, make_dataloader
+    from speedplusbaseline_tpu_torch.data.cache import load_manifest
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    rows = DATA_STEPS * B
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        write_dataset(tmp, "krn", rows, n_images=rows)  # one frame a row, as SPEED+
+        print(f"phase data: dataset of {rows} rows, one 1920x1200 JPEG each, written in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        cache_dir = os.path.join(tmp, "cache")
+        t0 = time.time()
+        for domain, csv in (("synthetic", "train.csv"), ("lightbox", "lightbox.csv")):
+            cache_dataset.main(["--dataroot", tmp, "--domain", domain, "--csv",
+                                f"splits_krn/{csv}", "--cache_dir", cache_dir,
+                                "--cache_size", str(CACHE_SIZE)])
+        build_s = time.time() - t0
+        pixels = [np.prod(Image.open(e[0]).size) for domain in ("synthetic", "lightbox")
+                  for e in load_manifest(cache_dir, "speedplus", domain).values()]
+        print(f"phase data: RoI cache of {len(pixels)} frames built in {build_s:.1f} s by the "
+              f"cache_dataset CLI (--cache_size {CACHE_SIZE}): mean {np.mean(pixels):.0f} "
+              f"cached pixels a frame = {np.mean(pixels) / (1920 * 1200):.4f} of 1920x1200",
+              flush=True)
+
+        def cfg(cache: bool, native: bool, **kw):
+            return default_cfg(dataroot=tmp, input_shape=(S, S), batch_size=B, num_workers=8,
+                               cache_dir=cache_dir if cache else "", use_native_loader=native,
+                               **kw)
+
+        rates, serial, decode = {}, {}, {}
+        for name, cache, native in LOADER_CONFIGS:
+            loader = make_dataloader(cfg(cache, native), dev)  # builds the core first
+            loader.set_epoch(1)
+            t0 = time.perf_counter()
+            n = sum(batch["image"].shape[0] for batch in loader.host_batches())
+            rates[name] = n / (time.perf_counter() - t0)
+            if n != rows:
+                fail(f"data: the {name} loader gave {n} images, expected {rows}")
+            ds = loader.dataset
+            t0 = time.perf_counter()
+            for i in range(2 * B):
+                ds.__getitem__(i, epoch=1)
+            serial[name] = (time.perf_counter() - t0) * 1000 / (2 * B)
+            if not native:  # the cv2 decode alone, as the dataset's imread makes it
+                rels = [str(ds.csv.iloc[i][0]).strip() for i in range(2 * B)]
+                paths = [ds.cache[r][0] if cache else os.path.join(ds.root, r) for r in rels]
+                t0 = time.perf_counter()
+                for path in paths:
+                    cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+                decode[name] = (time.perf_counter() - t0) * 1000 / (2 * B)
+        print(f"phase data: loader alone (host_batches, pinned, no device step), one epoch of "
+              f"{rows} images at {S}^2, batch {B}, 8 threads, os.cpu_count() = "
+              f"{os.cpu_count()}: " + ", ".join(f"{k} {v:.1f} img/s" for k, v in rates.items())
+              + f"; one thread, {2 * B} samples: " + ", ".join(
+                  f"{k} {v:.3f} ms a sample ({1000 / v:.1f} img/s), of it the decode "
+                  f"{decode[k]:.3f} ms" if k in decode else f"{k} {v:.3f} ms a sample"
+                  for k, v in serial.items()), flush=True)
+
+        extra = ["--cache_dir", cache_dir] + ["--use_native_loader"] * NATIVE_ON_CARD
+        launches, times = train_from_disk("data", tmp, "krn", DATA_STEPS, extra)
+        via = "through the native core" if NATIVE_ON_CARD else "through cv2"
+        print(f"phase data: from the cache {via}: median step {times['step']:.2f} ms, the "
+              f"epoch's wall {times['epoch']:.2f} ms a step, {times['after_first']:.2f} ms a "
+              f"step after the first; phase main's full frames through cv2 in this call: "
+              f"{main_times['step']:.2f}, {main_times['epoch']:.2f} and "
+              f"{main_times['after_first']:.2f} ms", flush=True)
+
+        full = KRNDataset(cfg(False, False), is_train=False, is_source=False)
+        for name, cache, native in (c for c in LOADER_CONFIGS if c[1]):
+            cached = KRNDataset(cfg(cache, native), is_train=False, is_source=False)
+            box_err, box_tol, crop_err, same_box_err = [], [], [], []
+            for i in range(len(full)):
+                a, b = full[i], cached[i]
+                rel = str(full.csv.iloc[i][0]).strip()
+                box_err.append(np.abs(a["bbox"] - b["bbox"]).max())
+                box_tol.append(1.0 + 1.0 / min(cached.cache[rel][3:]))
+                crop_err.append(mean_abs_diff(a["image"], b["image"]))
+                same_box_err.append(mean_abs_diff(
+                    full_frame_crop(os.path.join(full.root, rel), b["bbox"]), b["image"]))
+            print(f"phase data: {len(full)} eval crops, {name} against full-frame cv2: crop "
+                  f"box in original pixels max |d| {max(box_err):.3f} px, "
+                  f"{sum(e > 2.0 for e in box_err)} rows over 2 px, every row within its "
+                  f"1 + 1/scale (largest {max(box_tol):.3f} px): "
+                  f"{all(e <= t for e, t in zip(box_err, box_tol))}; a crop's mean |d| max "
+                  f"{max(crop_err):.4f}, mean {np.mean(crop_err):.4f} of full scale; against "
+                  f"the full frame cropped at the cached path's own box max "
+                  f"{max(same_box_err):.4f}, mean {np.mean(same_box_err):.4f} (tol "
+                  f"{TOL_EVAL_CROP})", flush=True)
+            if any(e > t for e, t in zip(box_err, box_tol)):
+                fail(f"data: a {name} eval crop box is off the full-frame one by more than "
+                     "the cache's quantization")
+            if max(same_box_err) >= TOL_EVAL_CROP:
+                fail(f"data: the {name} eval crops are not the full frame's")
+
+        # --profile_dir: 2 epochs of 2 steps; the trace is of the second.
+        splits = os.path.join(tmp, "speedplus", "synthetic", "splits_krn")
+        with open(os.path.join(splits, "train.csv")) as f:
+            head = f.readlines()[:2 * B]
+        with open(os.path.join(splits, "train_profile.csv"), "w") as f:
+            f.writelines(head)
+        prof_dir = os.path.join(tmp, "prof")
+        _build.reset_launches()
+        train.main(["--dataroot", tmp, "--input_shape", str(S), str(S), "--use_fp16",
+                    "--num_workers", "8", "--batch_size", str(B), "--optimizer", "adamw",
+                    "--randomize_texture", "--texture_ratio", "1.0", "--max_epochs", "2",
+                    "--train_csv", "train_profile.csv", "--savedir", os.path.join(tmp, "ps"),
+                    "--logdir", os.path.join(tmp, "pl"), "--profile_dir", prof_dir] + extra)
+        torch.cuda.synchronize()
         print("", flush=True)
-        if len(records) != steps:
-            fail(f"{phase} ran {len(records)} steps, expected {steps}")
-        loss = [sum(r[k] for k in losses) for r in records]
-        if not all(np.isfinite(loss)):
-            fail(f"{phase}: non-finite loss in {loss}")
-        if not all(r["styled"] for r in records):
-            fail(f"{phase}: texture_ratio 1.0 left a step unstyled")
-        for f in ("checkpoint.pt", "model_best.pt"):
-            if not os.path.exists(os.path.join(tmp, "save", f)):
-                fail(f"{phase}: no {f} written")
-        if (launches["ghiasi_resblock"] < B1_CALLS_PER_STEP * steps
-                or launches["instance_norm_film"] < 6 * steps):
-            fail(f"{phase}: kernel launches {launches} too few for {steps} styled steps")
-        ms = [r["ms"] for r in records[1:]]
-        step_ms = statistics.median(ms)
-        print(f"phase {phase}: {steps} styled {model} steps at {side}^2, losses "
-              f"{[round(v, 4) for v in loss]} ({' + '.join(losses)}), launches {launches}, "
-              f"wall {wall:.1f} s incl. set-up", flush=True)
-        print(f"phase {phase}: step ms after the first {[round(v, 2) for v in ms]}; median "
-              f"{step_ms:.2f} ms = {B * 1000 / step_ms:.1f} img/s (from disk, "
-              f"8 loader threads)", flush=True)
-        check_validation_and_test_cli(phase, tmp, common, losses, EVAL_ROWS, "trainer")
+        traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+        if traces != ["trace_epochs2-2.json"]:
+            fail(f"data: --profile_dir holds {traces}, expected trace_epochs2-2.json")
+        path = os.path.join(prof_dir, traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+        b1 = sum(B1_KERNEL in k for k in kernels)
+        b2 = sum(any(n in k for n in B2_KERNELS) for k in kernels)
+        print(f"phase data: --profile_dir, 2 epochs of 2 styled steps: {os.path.basename(path)}, "
+              f"{os.path.getsize(path) / 1e6:.1f} MB, {len(kernels)} device kernels, of them "
+              f"{b1} B1 ({B1_KERNEL}) and {b2} B2 ({' / '.join(B2_KERNELS)}); launches of the "
+              f"run {dict(_build.launches)}", flush=True)
+        if b1 == 0 or b2 == 0:
+            fail("data: the profiler's trace names no B1 or no B2 device kernel")
     return launches
 
 
@@ -1534,11 +1753,13 @@ def main() -> None:
                                                       "ghiasi_params.msgpack")), "asset weights")
     phase_geometry(dev)
     phase_spn_geometry(dev)
-    launches = {"krn": phase_main(dev, "krn", 6), "spn": phase_main(dev, "spn", 4)}
+    launches, main_times = phase_main(dev, "krn", 6)
+    launches = {"krn": launches, "spn": phase_main(dev, "spn", 4)[0]}
     phase_grl(dev)
     launches["dann"] = phase_dann(dev)
     launches["pretrained"] = phase_pretrained(dev, card)
     launches["style_predictor"] = phase_style_predictor(dev, card)
+    launches["data"] = phase_data(dev, main_times)
     for model in ("krn", "spn"):
         phase_resident(dev, model)
         phase_eval(dev, model)
@@ -1564,10 +1785,11 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the five "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the six "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "
-          "CLI, which has none), launches_by_path each; B1's bound_ms counts "
+          "CLI, which has none, 6 styled KRN steps from the RoI cache), launches_by_path "
+          "each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

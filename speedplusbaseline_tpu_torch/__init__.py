@@ -14,7 +14,10 @@ is found under the same path:
     ops/, csrc/          -- hand-written CUDA kernels (sm_90a) + plain versions
     geometry/, metrics/  -- projection, EPnP, SPN position, SPEED score
     data/                -- CSV dataset, host crop, pinned-memory loader,
-                            label preprocessing, the fake SPEED+ generator
+                            label preprocessing, the fake SPEED+ generator,
+                            the RoI cache (built by ``cache_dataset.py``)
+    native/, csrc/speedloader.cpp -- the native JPEG decode core (ctypes,
+                            built by the host C++ compiler at first use)
     io_utils/            -- checkpoints, summaries, meters, assets
     convert.py           -- JAX parameter trees <-> state_dicts
 

@@ -81,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--eval_batch_size", type=int, default=32,
                         help="Batched eval (the reference evaluates batch=1)")
     parser.add_argument("--use_native_loader", action="store_true", default=False,
-                        help="Use the C++ data-loader core if built")
+                        help="Decode with the C++ core (built at first use; "
+                             "RuntimeError if it cannot be)")
     parser.add_argument("--cache_dir", type=str, default="",
                         help="Pre-decoded RoI cache directory")
     parser.add_argument("--save_epoch", type=int, default=1,
@@ -111,11 +112,6 @@ def default_cfg(**overrides) -> SimpleNamespace:
 _UNPORTED = (
     ("--num_devices", lambda c: c.num_devices != 0,
      "data parallelism over several devices is not ported yet"),
-    ("--profile_dir", lambda c: bool(c.profile_dir),
-     "profiler capture is not ported yet"),
-    ("--use_native_loader", lambda c: c.use_native_loader,
-     "the C++ loader core is not ported yet"),
-    ("--cache_dir", lambda c: bool(c.cache_dir), "the RoI cache is not ported yet"),
 )
 
 

@@ -13,6 +13,15 @@ with the image path relative to ``{dataroot}/{dataname}``. CSV selection
 
 Per-sample randomness is a Philox stream keyed by (seed, epoch, index), so
 any worker arrangement, and the JAX package, give the same crops.
+
+``--cache_dir`` swaps each frame for its crop in the RoI cache
+(data/cache.py) when the domain has a manifest: the box and keypoints are
+mapped into cache coordinates, the eval crop box is mapped back to original
+pixels for the pose solver, and SPN returns the original CSV box. Without a
+manifest the dataset warns and decodes full frames, as the JAX package does.
+``--use_native_loader`` decodes, crops and resizes in one call of the native
+core (native/loader.py), which raises RuntimeError when it cannot be built;
+the JAX package warns and falls back to cv2 there.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from typing import Dict
 import numpy as np
 import pandas as pd
 
-from .transforms import random_crop, resize_crop
+from .cache import load_manifest, to_cache_coords, to_original_coords
+from .transforms import crop_params, random_crop, resize_crop
 
 logger = logging.getLogger(__name__)
 
@@ -56,6 +66,22 @@ class _CSVDataset:
         logger.info("%s from %s", "Training" if is_train else "Testing", csvfile)
         self.csv = pd.read_csv(csvfile, header=None)
 
+        self.use_native = bool(cfg.use_native_loader)
+        if self.use_native:
+            from ..native import load
+
+            load()  # build it here, once, before the loader's threads call it
+        self.cache = None
+        if cfg.cache_dir:
+            self.cache = load_manifest(cfg.cache_dir, cfg.dataname, domain)
+            if self.cache is None:
+                logger.warning("--cache_dir set but no manifest for domain %s under %s "
+                               "(build it with python -m speedplusbaseline_tpu_torch."
+                               "cache_dataset); decoding full frames", domain, cfg.cache_dir)
+            else:
+                logger.info("RoI cache: %d images (%s/%s)", len(self.cache), cfg.cache_dir,
+                            domain)
+
     def __len__(self):
         return len(self.csv)
 
@@ -64,10 +90,13 @@ class _CSVDataset:
             np.random.Philox(key=np.uint64([(self.seed << 20) + epoch, index])))
 
     def _row(self, index: int):
-        """(csv row, image path, csv bbox float32 (4,))."""
+        """(csv row, image path, csv bbox float32 (4,), cache entry or None):
+        the cached image's path where the cache holds the row's image."""
         row = self.csv.iloc[index]
-        imgpath = osp.join(self.root, str(row[0]).strip())
-        return row, imgpath, np.array(row[1:5], dtype=np.float32)
+        rel = str(row[0]).strip()
+        entry = self.cache.get(rel) if self.cache is not None else None
+        imgpath = entry[0] if entry is not None else osp.join(self.root, rel)
+        return row, imgpath, np.array(row[1:5], dtype=np.float32), entry
 
     @staticmethod
     def _eval_sample(crop, bbox, row) -> Dict[str, np.ndarray]:
@@ -87,20 +116,38 @@ class KRNDataset(_CSVDataset):
         self.num_keypts = cfg.num_keypoints
 
     def __getitem__(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
-        row, imgpath, bbox = self._row(index)
+        row, imgpath, bbox, entry = self._row(index)
         if self.is_train and self.load_labels:
             keypts = np.array(row[12:12 + 2 * self.num_keypts], dtype=np.float32)
             keypts = np.reshape(keypts, (self.num_keypts, 2)).T  # (2, K)
         else:
             keypts = np.zeros((2, self.num_keypts), dtype=np.float32)
+        if entry is not None:
+            bbox, keypts = to_cache_coords(entry, bbox, keypts)
 
-        image = _imread(imgpath)
-        crop, bbox, keypts = random_crop(self.rng_for(epoch, index), image, bbox,
-                                         keypts, self.input_shape, self.is_train)
+        rng = self.rng_for(epoch, index)
+        if self.use_native:
+            from ..native import decode_crop_resize, image_size
+
+            w, h = image_size(imgpath)
+            cxmin, cxmax, cymin, cymax = crop_params(rng, bbox, w, h, self.is_train)
+            crop = decode_crop_resize(imgpath, (cxmin, cymin, cxmax - cxmin, cymax - cymin),
+                                      self.input_shape)
+            bbox = np.array([cxmin, cxmax, cymin, cymax], dtype=np.float32)
+            keypts = keypts.copy()
+            keypts[0] = (keypts[0] - cxmin) / max(cxmax - cxmin, 1)
+            keypts[1] = (keypts[1] - cymin) / max(cymax - cymin, 1)
+        else:
+            crop, bbox, keypts = random_crop(rng, _imread(imgpath), bbox, keypts,
+                                             self.input_shape, self.is_train)
         if self.is_train:
             if self.load_labels:
                 return {"image": crop, "keypts": keypts}
             return {"image": crop}
+        if entry is not None:
+            # The pose solver denormalizes keypoints with the crop box in
+            # original camera pixels (inference.py:63-78).
+            bbox = to_original_coords(entry, bbox)
         return self._eval_sample(crop, bbox, row)
 
 
@@ -116,8 +163,19 @@ class SPNDataset(_CSVDataset):
         self.num_neighbors = cfg.num_neighbors
 
     def __getitem__(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
-        row, imgpath, bbox = self._row(index)
-        crop, bbox = resize_crop(_imread(imgpath), bbox, self.input_shape)
+        row, imgpath, bbox, entry = self._row(index)
+        # The crop is taken in the cached image's frame; the CSV box is returned.
+        box = to_cache_coords(entry, bbox)[0] if entry is not None else bbox
+        if self.use_native:
+            from ..native import decode_crop_resize, image_size
+
+            w, h = image_size(imgpath)
+            cxmin, cxmax = max(0, int(box[0])), min(w, int(box[1]))
+            cymin, cymax = max(0, int(box[2])), min(h, int(box[3]))
+            crop = decode_crop_resize(imgpath, (cxmin, cymin, cxmax - cxmin, cymax - cymin),
+                                      self.input_shape)
+        else:
+            crop, _ = resize_crop(_imread(imgpath), box, self.input_shape)
         if not self.is_train:
             return self._eval_sample(crop, bbox, row)
         n = self.num_neighbors

@@ -111,6 +111,29 @@ class RouterV2(nn.Module):
         return torch.cat([x2, x1], dim=1)
 
 
+def _leaky01(v):
+    return F.leaky_relu(v, 0.1)
+
+
+class RouterV3(nn.Module):
+    """Upsampling router (reference park2019.py:82-97): 1x1 conv + BN +
+    LeakyReLU(0.1) on the low-res stream, a 2x bilinear upsample with
+    half-pixel centres (``jax.image.resize(..., "bilinear")``, which is
+    ``align_corners=False`` here; the reference's module would use
+    ``align_corners=True`` but is never called), then concat with the
+    high-res stream. KRN does not use it; it is kept, as the JAX package
+    keeps it, for parity of the layer inventory."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv = ConvBN(in_ch, features, 1, 1, act=_leaky01)
+
+    def forward(self, x1, x2):
+        x1 = F.interpolate(self.conv(x1), scale_factor=2, mode="bilinear",
+                           align_corners=False)
+        return torch.cat([x1, x2], dim=1)
+
+
 class LocalResponseNorm(nn.Module):
     """``torch.nn.LocalResponseNorm`` semantics (spn.py:63,68), computed in
     f32 and cast back to x's dtype, as the flax module does: the channel axis

@@ -12,8 +12,13 @@ and ``camera.json`` are read only when validation is on (``--test_epoch >
 0``), so a run without validation needs no test split. ``--perform_dann``
 raises ``ValueError``: DANN trains through the adapt CLI
 (``python -m speedplusbaseline_tpu_torch.adapt``); the JAX trainer would
-train RevGrad's ``net`` alone. Multi-device runs are not ported yet; their
-flags raise ``NotImplementedError`` (config.check_ported).
+train RevGrad's ``net`` alone. ``--profile_dir`` records ``torch.profiler``
+(CPU, and CUDA on the card) from the second epoch of the run to its end and
+writes a Chrome trace there, as the JAX trainer (train.py:162-189) captures
+from its second epoch; a one-epoch run writes none. ``--cache_dir`` and
+``--use_native_loader`` go to the datasets (data/csv_dataset.py).
+Multi-device runs are not ported yet; their flag raises
+``NotImplementedError`` (config.check_ported).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -75,6 +80,18 @@ def attitude_classes(cfg):
         raise ValueError(f"--attitude_class holds {q_class.shape[0]} classes, "
                          f"--num_classes is {cfg.num_classes}")
     return q_class
+
+
+def start_profiler(device: torch.device):
+    """A started ``torch.profiler`` of the host and, on the card, the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 def eval_setup(cfg, device: torch.device):
@@ -150,8 +167,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     schedule = step_lr_schedule(cfg.lr, cfg.lr_decay_alpha, cfg.lr_decay_step,
                                 steps_per_epoch)
     records: List[dict] = []
+    prof = None
     try:
         for epoch in range(begin_epoch, cfg.max_epochs):
+            if cfg.profile_dir and epoch == begin_epoch + 1:
+                prof, first_profiled = start_profiler(device), epoch + 1
             lr_value = schedule(state.step)
             set_lr(state.optimizer, lr_value)
             for r in train_epoch(epoch + 1, cfg, state, train_step, train_loader,
@@ -168,7 +188,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                 save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
                                                          best_perf),
                                 is_best, cfg.savedir)
+        if prof is not None:
+            prof.stop()
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            trace = osp.join(cfg.profile_dir,
+                             f"trace_epochs{first_profiled}-{cfg.max_epochs}.json")
+            prof.export_chrome_trace(trace)
+            prof = None
+            logger.info("Profiler trace written to %s", trace)
     finally:
+        if prof is not None:  # an error left it running
+            prof.stop()
         writer.close()
     return records
 

@@ -241,3 +241,46 @@ def test_style_predictor_on_card_matches_cpu(dev):
         got = model.to(dev)(x.to(dev)).cpu()
     assert got.shape == (8, 100) and torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def cached_data(tmp_path_factory):
+    """A small dataset of the port's generator with its KRN CSVs and the
+    RoI cache of its train domain (host work only: no card needed)."""
+    from speedplusbaseline_tpu_torch.data import generate_fake_speedplus, json2csv
+    from speedplusbaseline_tpu_torch.data.cache import build_cache
+
+    root = str(tmp_path_factory.mktemp("cuda_data"))
+    cpu = torch.device("cpu")
+    generate_fake_speedplus(root, num_train=8, num_test=2, domains=("synthetic",), device=cpu)
+    csv = json2csv(root, "speedplus", "synthetic", "train.json", "splits_krn/train.csv",
+                   device=cpu)
+    build_cache(root, "speedplus", "synthetic", [csv], f"{root}/cache", cache_size=128)
+    return root
+
+
+@pytest.mark.parametrize("cache,native", [(True, False), (False, True), (True, True)])
+def test_cached_and_native_loaders_feed_the_card(dev, cached_data, cache, native):
+    """The loader from the RoI cache and/or through the native core lands
+    pinned batches on the card, equal to the same loader's CPU batches. The
+    native cases need libjpeg's headers and library on the machine."""
+    from speedplusbaseline_tpu_torch.config import default_cfg
+    from speedplusbaseline_tpu_torch.data import DataLoader, KRNDataset
+    from speedplusbaseline_tpu_torch.native import native_available
+
+    if native and not native_available():
+        pytest.skip("the native decode core cannot be built here (no libjpeg headers)")
+
+    cfg = default_cfg(dataroot=cached_data, input_shape=(64, 64),
+                      cache_dir=f"{cached_data}/cache" if cache else "",
+                      use_native_loader=native)
+    ds = KRNDataset(cfg)
+    assert (ds.cache is not None) == cache and ds.use_native == native
+    on_card = list(DataLoader(ds, 4, dev, num_workers=4, seed=3))
+    on_cpu = list(DataLoader(ds, 4, torch.device("cpu"), num_workers=4, seed=3))
+    assert len(on_card) == len(on_cpu) == 2
+    for g, c in zip(on_card, on_cpu):
+        torch.cuda.synchronize()
+        for k in ("image", "keypts"):
+            assert g[k].device.type == "cuda"
+            assert torch.equal(g[k].cpu(), c[k])

@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX, and its CLIs refuse what they do not
 serve: a missing GPU without --no_cuda, an unknown model name, DANN in the
-train CLI, and the flags of parts not yet ported."""
+train CLI, and the flag of the part not yet ported (--num_devices)."""
 import os
 import subprocess
 import sys
@@ -27,10 +27,19 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "speedplusbaseline_tpu"))
 print(" ".join(mods))
 assert not bad, bad
+from speedplusbaseline_tpu_torch.native import load
+lib = load()._name  # the port's own core, built from its csrc/
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "/build/native/" in lib and lib in maps, lib
+assert "speedplusbaseline_tpu/native" not in maps
 """
 
 
 def test_port_imports_no_jax():
+    """No module of the port, nor chip_smoke, imports JAX or the JAX package,
+    and the native decode core it loads is its own build, not the JAX
+    package's libspeedloader.so."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -44,7 +53,8 @@ def test_port_imports_no_jax():
                             "geometry.spn_position", "models.spn", "models.build",
                             "models.revgrad", "adapt", "preprocess", "data.preprocess",
                             "data.synthetic", "models.weight_convert", "models.style_predictor",
-                            "embedding", "convert_weights")} <= mods
+                            "embedding", "convert_weights", "data.cache", "cache_dataset",
+                            "native.loader")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -60,16 +70,26 @@ def test_test_cli_raises_without_gpu(monkeypatch, tmp_path):
         test_cli.main(["--logdir", str(tmp_path / "l")])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"], ["--profile_dir", "prof"], ["--use_native_loader"],
-    ["--cache_dir", "cache"],
-])
+@pytest.mark.parametrize("flags", [["--num_devices", "2"]])
 def test_unported_flags_raise(flags, tmp_path):
     """The three CLIs refuse each flag."""
     for main in (train.main, test_cli.main, adapt.main):
         with pytest.raises(NotImplementedError):
             main(flags + ["--perform_dann"] * (main is adapt.main)
                  + ["--no_cuda", "--savedir", str(tmp_path / "s"), "--logdir", str(tmp_path / "l")])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--profile_dir", "prof"], ["--use_native_loader"], ["--cache_dir", "cache"],
+])
+def test_ported_flags_are_accepted(flags, tmp_path):
+    """The three CLIs take each flag and go on to read their data, which is
+    missing here (the flags' runs: test_torch_data_path.py)."""
+    for main in (train.main, test_cli.main, adapt.main):
+        with pytest.raises(FileNotFoundError, match=str(tmp_path / "none")):
+            main(flags + ["--perform_dann"] * (main is adapt.main)
+                 + ["--dataroot", str(tmp_path / "none"), "--no_cuda",
+                    "--savedir", str(tmp_path / "s"), "--logdir", str(tmp_path / "l")])
 
 
 def test_train_cli_sends_dann_to_adapt(tmp_path):

@@ -22,6 +22,7 @@ from speedplusbaseline_tpu.models.ghiasi import Ghiasi as JaxGhiasi
 from speedplusbaseline_tpu.models.krn import KeypointRegressionNet as JaxKRN
 from speedplusbaseline_tpu.models.krn import krn_loss as jax_krn_loss
 from speedplusbaseline_tpu.models.layers import ConvBN as JaxConvBN
+from speedplusbaseline_tpu.models.layers import RouterV3 as JaxRouterV3
 from speedplusbaseline_tpu.models.layers import space_to_depth as jax_s2d
 from speedplusbaseline_tpu.models.mobilenetv2 import MobileNetV2Features as JaxMNv2
 from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
@@ -31,7 +32,8 @@ from speedplusbaseline_tpu_torch.convert import (flax_to_state_dict,
 from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
 from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
 from speedplusbaseline_tpu_torch.models.krn import KeypointRegressionNet, krn_loss
-from speedplusbaseline_tpu_torch.models.layers import BatchNorm, ConvBN, space_to_depth
+from speedplusbaseline_tpu_torch.models.layers import (BatchNorm, ConvBN, RouterV3,
+                                                       space_to_depth)
 from speedplusbaseline_tpu_torch.models.mobilenetv2 import MobileNetV2Features
 
 torch.set_num_threads(1)
@@ -240,3 +242,37 @@ def test_batchnorm_running_var_is_biased():
     np.testing.assert_allclose(ours.running_var.numpy(), (0.9 + 0.1 * biased).numpy(),
                                rtol=1e-6)
     assert not torch.allclose(ours.running_var, ref.running_var, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("side", [5, 8])
+def test_router_v3_matches_flax(side, dtype):
+    """RouterV3 in eval mode, weights through convert.py both ways: the 2x
+    bilinear upsample is jax.image.resize's half-pixel one, borders included
+    (F.interpolate with align_corners=False; True differs). f32 within 1e-5
+    of the output's scale, float64 within 1e-12."""
+    torch.manual_seed(9)
+    ours = RouterV3(6, 4).eval()
+    rs = np.random.RandomState(side)
+    for buf in ours.buffers():
+        buf.copy_(torch.from_numpy(rs.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
+    params, stats = state_dict_to_flax(ours.state_dict())
+    assert params["conv"]["Conv_0"]["kernel"].shape == (1, 1, 6, 4)
+    ours.load_state_dict(flax_to_state_dict(params, stats))
+    x1 = rs.randn(2, side, side, 6).astype(dtype)
+    x2 = rs.randn(2, 2 * side, 2 * side, 3).astype(dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.float64
+    with jax.enable_x64(dtype == "float64"):
+        p, st = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), (params, stats))
+        fn = jax.jit(lambda v, a, b: JaxRouterV3(4, dtype=jdt).apply(v, a, b, train=False))
+        with jax.default_matmul_precision("float32"):
+            ref = np.asarray(fn({"params": p, "batch_stats": st}, jnp.asarray(x1),
+                                jnp.asarray(x2)))
+    assert ref.dtype == np.dtype(dtype) and ref.shape == (2, 2 * side, 2 * side, 7)
+    ours = ours.to(getattr(torch, dtype))
+    with torch.no_grad():
+        out = ours(nchw(x1), nchw(x2))
+        corners = torch.cat([F.interpolate(ours.conv(nchw(x1)), scale_factor=2,
+                                           mode="bilinear", align_corners=True), nchw(x2)], 1)
+    close(out.permute(0, 2, 3, 1), ref, rel=1e-5 if dtype == "float32" else 1e-12)
+    assert not np.allclose(corners.permute(0, 2, 3, 1).numpy(), ref, atol=1e-3)

@@ -257,3 +257,22 @@ def test_train_cli_end_to_end(dataset, tmp_path):
     assert ckpt["epoch"] == 2 and ckpt["step"] == 4
     with pytest.raises(ValueError, match="mismatch"):
         train.main(common + ["--max_epochs", "3", "--optimizer", "sgd"])
+
+
+def test_profile_dir_traces_from_the_second_epoch(dataset, tmp_path):
+    """--profile_dir, as the JAX trainer: a one-epoch run writes no trace; a
+    two-epoch run writes a Chrome trace of its second epoch that holds the
+    step's ops."""
+    prof = tmp_path / "prof"
+    common = ["--dataroot", dataset, "--input_shape", "32", "32", "--batch_size", "4",
+              "--num_workers", "2", "--no_cuda", "--profile_dir", str(prof)]
+    train.main(common + ["--savedir", str(tmp_path / "s1"), "--logdir", str(tmp_path / "l1"),
+                         "--max_epochs", "1"])
+    assert not prof.exists()
+    records = train.main(common + ["--savedir", str(tmp_path / "s2"),
+                                   "--logdir", str(tmp_path / "l2"), "--max_epochs", "2"])
+    assert [r["epoch"] for r in records] == [1, 1, 2, 2]
+    assert os.listdir(prof) == ["trace_epochs2-2.json"]
+    with open(prof / "trace_epochs2-2.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::convolution", "aten::convolution_backward"} <= names
