@@ -78,7 +78,23 @@ Phases, each printing its own lines:
                 on a resident batch (host clock, and device busy time by
                 torch.profiler), and the eval step (forward, geometry) as
                 device time and on the host clock; the DANN step on resident
-                batches of 16 + 16 in f32 and in bf16.
+                batches of 16 + 16 in f32 and in bf16;
+ 13. ddp      -- data parallelism on the one card: two ranks (spawned
+                processes) over gloo with CUDA tensors each take one f32
+                step (SGD, lr 1e-2) of the styled KRN trainer (224^2, global
+                batch 48), the styled SPN trainer (227^2, 5000 classes) and
+                the DANN step (16 + 16) on their halves of the global batch,
+                against one process's step on the whole batch (parameters
+                within 1e-4), with each rank's B1 / B2 launches and the ms
+                of a step over gloo and in one process; then one process
+                over NCCL at world 1 runs the collective path (with and
+                without it: device ms a step; the NCCL kernels the profiler
+                sees). NCCL between cards cannot be shown on one card;
+ 14. ghiasi_phase -- the phase-space Ghiasi lowering against the plain one
+                (224^2 and 227^2 on the input padded to 228, batch 48, f32
+                and bf16, the shipped weights), each lowering's device ms a
+                restyle by CUDA events and by torch.profiler with the share
+                of its two 9x9 convs, and a styled KRN step with each.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -139,6 +155,9 @@ TOL_B1_F32 = (5e-4, 1e-4)  # K = 1152-term sums of split-bf16 products, in anoth
 # and a sigmoid in [0, 1]. 2^-6 is four bf16 ulps at the top of [0.5, 1), about
 # twice what phase "kernels" reads on an H100.
 TOL_GHIASI_BF16 = (2.0 ** -6, 0.0)
+# The bf16 generator's worst element at batch 48 (phase ghiasi_phase): a
+# few of its 7.2 M outputs pass 2^-6 (PERF.md §6).
+TOL_PHASE_BF16 = 2.0 ** -5
 # The SPEED+ camera (1920x1200, 17.6 mm / 5.86 um pixels, tests/conftest.py).
 FOCAL_PX = 0.0176 / 5.86e-6
 CAMERA = {"cameraMatrix": [[FOCAL_PX, 0.0, 960.0], [0.0, FOCAL_PX, 600.0], [0.0, 0.0, 1.0]],
@@ -1581,6 +1600,346 @@ def phase_resident_dann(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase ddp: two ranks over gloo on one card, each with half of the global
+# batch, against one process; parameters within TOL_DDP worst absolute, the
+# JAX package's DP tests' bound for one SGD step (lr 1e-2, no momentum) in
+# f32, and BatchNorm's running statistics within TOL_DDP of their scale.
+# The bound means something only if the step moves more than it. The ranks'
+# gap from the one process's update is at most DDP_REL of that update's L2
+# norm, which a halved, unreduced or skipped update (a gap of half the update
+# or more) cannot pass; and the one process's worst move is DDP_MOVE times
+# TOL_DDP, so that a halved update fails the worst-absolute bound as well.
+DDP_WORLD, DDP_MODELS, TOL_DDP, DDP_REPS = 2, ("krn", "spn", "dann"), 1e-4, 3
+DDP_MOVE, DDP_REL = 2.0, 0.1
+
+
+def ddp_setup(model: str, dev):
+    """(state, step) of one f32 train step of ``model`` at full width on
+    ``dev``: the styled KRN trainer at 224^2 and batch 48, the styled SPN
+    trainer at 227^2 with 5000 classes and batch 48, the DANN step at 16 +
+    16; SGD at lr 1e-2 without momentum, as the JAX package's DP tests;
+    seeded weights and a seeded global batch, of which a rank of a process
+    group keeps its rows. ``step(state)`` runs one step and returns its loss
+    terms."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch.augment.styleaug import (StyleAugmentor,
+                                                              load_ghiasi_params,
+                                                              load_style_stats)
+    from speedplusbaseline_tpu_torch.config import default_cfg
+    from speedplusbaseline_tpu_torch.engine import TrainState, build_optimizer
+    from speedplusbaseline_tpu_torch.engine.steps import make_dann_train_step, make_train_step
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+    from speedplusbaseline_tpu_torch.models import get_model
+    from speedplusbaseline_tpu_torch.parallel import global_batch, rank_world
+
+    side = SPN_S if model == "spn" else S
+    n = DANN_B if model == "dann" else B
+    cfg = default_cfg(model_name="spn" if model == "spn" else "krn", dann=model == "dann",
+                      input_shape=(side, side), num_classes=SPN_CLASSES, batch_size=n,
+                      optimizer="sgd", lr=1e-2, momentum=0.0, weight_decay=0.0)
+    torch.manual_seed(0)
+    net = get_model(cfg).to(dev, memory_format=torch.channels_last)
+    state = TrainState(net, build_optimizer(cfg, net.parameters()))
+    world = rank_world()[1] if rank_world() else 1
+    rows = global_batch(n // world)[1]
+    rs = np.random.RandomState(1)
+
+    def part(a):
+        return torch.from_numpy(a[rows]).to(dev)
+
+    def images():
+        return rs.randint(0, 256, (n, side, side, 3), dtype=np.uint8)
+
+    if model == "dann":
+        src = {"image": part(images()), "keypts": part(rs.rand(n, 2, 11).astype(np.float32))}
+        tgt = {"image": part(images())}
+        dann = make_dann_train_step(cfg, dev)
+        return state, lambda st: dann(st, src, tgt, np.float32(0.5))
+    batch = {"image": part(images())}
+    if model == "krn":
+        batch["keypts"] = part(rs.rand(n, 2, 11).astype(np.float32))
+    else:
+        y_classes = np.zeros((n, SPN_CLASSES), np.float32)
+        y_weights = np.zeros((n, SPN_CLASSES), np.float32)
+        for i in range(n):
+            idx = rs.choice(SPN_CLASSES, SPN_NEIGHBORS, replace=False)
+            y_classes[i, idx] = 1.0 / SPN_NEIGHBORS
+            y_weights[i, idx] = rs.dirichlet(np.ones(SPN_NEIGHBORS))
+        batch.update(y_classes=part(y_classes), y_weights=part(y_weights))
+    aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.float32, dev)
+    aug.ghiasi.load_state_dict(load_ghiasi_params(
+        os.path.join(default_assets_dir(), "ghiasi_params.msgpack")))
+    step = make_train_step(cfg, dev, aug)
+    return state, lambda st: step(st, batch, True)
+
+
+def ddp_rank(model: str, device: str):
+    """One rank of phase ddp on ``device``: one step of ddp_setup(model) on
+    its rows of the global batch, with its B1 / B2 launches printed. Returns
+    (rank 0's state after the step, the launches summed over the ranks, the
+    loss terms, step_times of DDP_REPS more steps)."""
+    import torch
+    import torch.distributed as dist
+
+    from speedplusbaseline_tpu_torch.ops import _build
+    from speedplusbaseline_tpu_torch.parallel import rank_world
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    state, step = ddp_setup(model, dev)
+    _build.reset_launches()
+    losses = {k: float(v) for k, v in step(state).items()}
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    rank, world = rank_world()
+    print(f"phase ddp: {model} rank {rank} of {world} ({dist.get_backend()} on {dev}): "
+          f"B1 {launches['ghiasi_resblock']}, B2 {launches['instance_norm_film']} launches "
+          "in its step", flush=True)
+    out = {k: v.to("cpu", torch.float32, copy=True) for k, v in state.model.state_dict().items()}
+    counts = torch.tensor([launches[k] for k in _build.launches], dtype=torch.float64,
+                          device=dev)
+    dist.all_reduce(counts)
+    return out, dict(zip(_build.launches, counts.tolist())), losses, step_times(state, step)
+
+
+def step_times(state, step):
+    """(device busy ms, ms between CUDA events without a hold) a step of
+    ``step(state)``, each over DDP_REPS steps: gloo's collectives wait on
+    the host, so there the events time the whole step."""
+    return (busy_ms(lambda: step(state), DDP_REPS),
+            time_ms(lambda: step(state), reps=DDP_REPS, hold=False))
+
+
+def ddp_nccl_rank():
+    """Phase ddp's NCCL process: a process group of world 1 over NCCL on
+    cuda:0 runs the collective path of the styled KRN step (global
+    BatchNorm, the loss's gather, the gradient all_reduce). Returns (device
+    busy ms, ms between CUDA events) a step with the collectives, the NCCL
+    kernels and the count of memory copies the profiler saw in one step,
+    and the same two times after the group is destroyed, without them."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    state, step = ddp_setup("krn", dev)
+    with_ms = step_times(state, step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = sorted({e.key for e in device if "nccl" in e.key.lower()})
+    copies = sum(e.count for e in device if "memcpy" in e.key.lower())
+    dist.destroy_process_group()
+    without_ms = step_times(state, step)
+    return with_ms, nccl, copies, without_ms
+
+
+def phase_ddp(dev):
+    """Data parallelism on the one card: for each of DDP_MODELS, two ranks
+    over gloo with CUDA tensors take one f32 step on their halves of the
+    global batch, against one process's step on the whole batch; then one
+    process over NCCL at world 1 runs the collective path. Prints each
+    step's ms with and without the collectives. Returns the ranks' B1 / B2
+    launches, summed."""
+    import numpy as np
+    import torch
+
+    from speedplusbaseline_tpu_torch.ops import _build
+    from speedplusbaseline_tpu_torch.parallel import spawn
+
+    print("phase ddp: one card serves both ranks (cuda:0, gloo with CUDA tensors); NCCL "
+          "between cards (N > 1) is not run by this phase and not shown", flush=True)
+    total = dict.fromkeys(_build.launches, 0)
+    for model in DDP_MODELS:
+        t0 = time.time()
+        state, step = ddp_setup(model, dev)
+        init = {k: v.to("cpu", torch.float32, copy=True)
+                for k, v in state.model.state_dict().items()}
+        _build.reset_launches()
+        losses = {k: float(v) for k, v in step(state).items()}
+        torch.cuda.synchronize()
+        one_launches = dict(_build.launches)
+        ref = {k: v.to("cpu", torch.float32, copy=True)
+               for k, v in state.model.state_dict().items()}
+        params = {k for k, _ in state.model.named_parameters()}
+        one_ms = step_times(state, step)
+        del state, step
+        torch.cuda.empty_cache()
+        got, launches, rank_losses, ms = spawn(ddp_rank, (model, str(dev)), DDP_WORLD, "gloo")
+        launches = {k: int(v) for k, v in launches.items()}
+        for k, v in launches.items():
+            total[k] += v
+        worst = max((got[k] - ref[k]).abs().max().item() for k in params)
+        move = max((ref[k] - init[k]).abs().max().item() for k in params)
+        rel = (sum(((got[k] - ref[k]) ** 2).sum().item() for k in params)
+               / sum(((ref[k] - init[k]) ** 2).sum().item() for k in params)) ** 0.5
+        stats = [k for k in ref if k not in params]
+        worst_stat = max(((got[k] - ref[k]).abs().max() / max(1.0, ref[k].abs().max())).item()
+                         for k in stats) if stats else 0.0
+        still = [k for k in ref if k.endswith("running_var")
+                 and (torch.equal(got[k], init[k]) or torch.equal(ref[k], init[k]))]
+        print(f"phase ddp: {model}: {DDP_WORLD} ranks against one process: parameters worst "
+              f"|d| {worst:.3e} against the one process's worst move {move:.3e} (at least "
+              f"{DDP_MOVE:g} x tol), |d| / |move| over all parameters {rel:.3e} (tol "
+              f"{DDP_REL:g}), running statistics worst |d| / scale {worst_stat:.3e} "
+              f"(tol {TOL_DDP:g}); losses {rank_losses} against {losses}; launches "
+              f"{launches} against one process's {one_launches}; a step's device busy "
+              f"time {ms[0]:.2f} ms on rank 0 over gloo, {one_ms[0]:.2f} ms in one process "
+              f"(torch.profiler), between CUDA events {ms[1]:.2f} and {one_ms[1]:.2f} ms "
+              f"({DDP_REPS} steps each); {time.time() - t0:.1f} s", flush=True)
+        if not all(np.isfinite(list(rank_losses.values()))):
+            fail(f"ddp: {model}: non-finite loss {rank_losses}")
+        if worst > TOL_DDP or worst_stat > TOL_DDP or rel > DDP_REL:
+            fail(f"ddp: {model}: {DDP_WORLD} ranks differ from one process")
+        if move < DDP_MOVE * TOL_DDP:
+            fail(f"ddp: {model}: one step moves the parameters by {move:.3e} at most, "
+                 f"too little to tell the ranks' step from none at tol {TOL_DDP:g}")
+        if still:
+            fail(f"ddp: {model}: the step left running variances as they were: {still}")
+        if launches != {k: v * DDP_WORLD for k, v in one_launches.items()}:
+            fail(f"ddp: {model}: the ranks launched {launches}, one process {one_launches}")
+    (with_busy, with_ms), nccl, copies, (without_busy, without_ms) = spawn(
+        ddp_nccl_rank, (), 1, "nccl")
+    print(f"phase ddp: NCCL at world 1, styled krn f32 step: device busy {with_busy:.3f} ms "
+          f"with the collective path, {without_busy:.3f} ms without (torch.profiler, "
+          f"{DDP_REPS} steps); between CUDA events {with_ms:.3f} and {without_ms:.3f} ms; "
+          f"NCCL kernels in one step: {nccl or 'none seen by the profiler'}; memory copies "
+          f"in it: {copies}", flush=True)
+    return total
+
+
+def busy_ms(fn, calls: int = 3) -> float:
+    """Device busy ms a call of ``fn``: the device kernels torch.profiler
+    records over ``calls`` calls after one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1000 / calls
+
+
+def phase_ghiasi_phase(dev, sd):
+    """The phase-space lowering against the plain one on the card: at 224^2
+    and at 227^2 (the plain lowering on the input reflect-padded to 228),
+    batch 48, f32 and bf16, the shipped weights ``sd``. Device time per
+    restyle of each lowering by CUDA events and by torch.profiler, with the
+    share of the two reflect-pad + 9x9 convs (layers 0 and 10) in each. Then
+    a styled KRN step (224^2, batch 48, bf16, AdamW) with each lowering from
+    the same weights and batch: finite losses, both printed (the two
+    restyles differ within bf16 rounding, held above), and B1 five times and
+    B2 twice (layers 1 and 2) in the phase-space step. Returns those
+    launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from speedplusbaseline_tpu_torch import profile_step
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi, _conv, _nhwc, reflect_pad
+    from speedplusbaseline_tpu_torch.ops import _build
+    from speedplusbaseline_tpu_torch.ops import phase_conv as pc
+
+    card = card_line()
+    g = torch.Generator(device=dev).manual_seed(5)
+    for side in (S, SPN_S):
+        x = torch.rand(B, 3, side, side, device=dev, generator=g)
+        st = torch.randn(B, 100, device=dev, generator=g) * 0.5
+        pad = -side % 4
+        xp = F.pad(x, (0, pad, 0, pad), mode="reflect")
+        nets = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for phase in (False, True):
+                nets[phase, dtype] = Ghiasi(dtype, phase_space=phase).to(dev).eval()
+                nets[phase, dtype].load_state_dict(sd)
+        with torch.no_grad():
+            ref = nets[False, torch.float32](xp, st).float()
+            compare(f"ghiasi_phase: phase-space Ghiasi ({B}, 3, {side}, {side}) f32 vs the "
+                    "plain f32 lowering" + (f" of the input padded to {side + pad}" if pad else ""),
+                    nets[True, torch.float32](x, st), ref, (1e-4, 1e-4))
+            # bf16 against the f32 reference, each lowering: the phase one's
+            # worst element within TOL_PHASE_BF16, its mean error within
+            # twice the plain lowering's.
+            err = {phase: (nets[phase, torch.bfloat16](x if phase else xp, st).float() - ref).abs()
+                   for phase in (False, True)}
+            over = {phase: int((e > TOL_GHIASI_BF16[0]).sum()) for phase, e in err.items()}
+            print(f"  ghiasi_phase: ({B}, 3, {side}, {side}) bf16 against the plain f32 "
+                  f"lowering: plain max {err[False].max().item():.3e} mean "
+                  f"{err[False].mean().item():.3e}; phase-space max "
+                  f"{err[True].max().item():.3e} mean {err[True].mean().item():.3e}; elements "
+                  f"over {TOL_GHIASI_BF16[0]:g}: plain {over[False]}, phase-space {over[True]} "
+                  f"of {err[True].numel()}", flush=True)
+            if (err[True].max() > TOL_PHASE_BF16
+                    or err[True].mean() > 2 * err[False].mean()):
+                fail(f"ghiasi_phase: the bf16 phase-space lowering at {side}^2 is off")
+            for dtype in (torch.float32, torch.bfloat16):
+                h = side + pad
+                a = torch.rand(B, 32, h, h, device=dev, generator=g).to(dtype).contiguous(
+                    memory_format=torch.channels_last)
+                xd = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                plain, phase = nets[False, dtype], nets[True, dtype]
+                # the phase lowering's layer0 reads the input padded to 4k
+                x4 = pc.space_to_depth2(_nhwc(xp.to(dtype)))
+                a4 = pc.space_to_depth2(_nhwc(a))
+                b0, b10 = plain.layer0.conv.bias, plain.layer10.conv.bias
+                stages = {
+                    False: (lambda: plain(xd, st),
+                            lambda: (_conv(plain.layer0.conv, reflect_pad(xd, 4)),
+                                     _conv(plain.layer10.conv, reflect_pad(a, 4)))),
+                    True: (lambda: phase(xd, st),
+                           lambda: (pc.conv9x9_phase(x4, None, b0, phase_w=phase.phase_w0),
+                                    pc.conv9x9_phase_dp(a4, None, b10,
+                                                        phase_w=phase.phase_w10)))}
+                for lowering, (whole, convs) in stages.items():
+                    ev, ev9 = time_ms(whole, reps=10), time_ms(convs, reps=10)
+                    pr, pr9 = busy_ms(whole), busy_ms(convs)
+                    print(f"phase ghiasi_phase: {'phase-space' if lowering else 'plain'} "
+                          f"lowering, ({B}, 3, {side}, {side}) {str(dtype)[6:]}: "
+                          f"{ev:.3f} ms a restyle by CUDA events, {pr:.3f} ms by "
+                          f"torch.profiler; the 9x9 convs (layers 0 and 10, with their "
+                          f"pads) {ev9:.3f} ms = {100 * ev9 / ev:.1f}% (events), "
+                          f"{pr9:.3f} ms = {100 * pr9 / pr:.1f}% (profiler); {card}",
+                          flush=True)
+        del nets
+        torch.cuda.empty_cache()
+
+    out = {}
+    for phase in (False, True):
+        torch.manual_seed(0)
+        state, step, batch = profile_step.build(dev, "krn", phase_space=phase)
+        _build.reset_launches()
+        losses = {k: float(v) for k, v in step(state, batch, True).items()}
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        host = [profile_step.time_step(state, step, batch, True) for _ in range(2)]
+        busy = profile_step.profile(state, step, batch, True, table=False,
+                                    label=f"{'phase-space' if phase else 'plain'} styled krn")
+        out[phase] = (losses, launches)
+        print(f"phase ghiasi_phase: styled krn step ({B}, {S}^2, bf16, AdamW) with the "
+              f"{'phase-space' if phase else 'plain'} lowering: first-step losses {losses}, "
+              f"B1/B2 launches {launches}; host clock {[round(v, 2) for v in host]} ms, "
+              f"device busy {busy:.2f} ms a step; {card}", flush=True)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    losses, launches = out[True]
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"ghiasi_phase: the phase-space styled step's losses {losses}")
+    if launches != {"ghiasi_resblock": B1_CALLS_PER_STEP, "instance_norm_film": 2}:
+        fail(f"ghiasi_phase: one phase-space styled step launched {launches}")
+    return launches
+
+
 # meter name -> the trainer's scalar tag; DUMPS: meter name -> per-row dump.
 VALID_TAGS = {"eR": "Valid/err_q [deg]", "eT": "Valid/err_t [m]",
               "speed (raw)": "Valid/speed (raw) [-]", "speed (thr)": "Valid/speed (thr) [-]"}
@@ -1764,6 +2123,9 @@ def main() -> None:
         phase_resident(dev, model)
         phase_eval(dev, model)
     phase_resident_dann(dev)
+    launches["ddp"] = phase_ddp(dev)
+    launches["ghiasi_phase"] = phase_ghiasi_phase(dev, load_ghiasi_params(os.path.join(
+        default_assets_dir(), "ghiasi_params.msgpack")))
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -1785,11 +2147,12 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the six "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the eight "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "
-          "CLI, which has none, 6 styled KRN steps from the RoI cache), launches_by_path "
-          "each; B1's bound_ms counts "
+          "CLI, which has none, 6 styled KRN steps from the RoI cache, the ddp ranks' styled "
+          "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
+          "phase-space lowering), launches_by_path each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,9 @@ reversal coefficient of step ``idx`` of ``n`` is 2 / (1 + exp(-10 p)) - 1
 with p = (idx + epoch n) / max_epochs / n (dann.py:77-78); validation with
 the KRN eval step every ``--test_epoch`` epochs; checkpoint.pt and
 model_best.pt with ``"model": "krn"``. Auto-resume as in the train CLI. As
-there, the Tango points and ``camera.json`` are read only when validating.
+there, the Tango points and ``camera.json`` are read only when validating,
+and ``--num_devices N`` runs N data-parallel ranks, each on its rows of
+both streams' global batches (rank 0 writes).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -35,6 +37,7 @@ from .io_utils import (SummaryWriter, checkpoint_exists, load_checkpoint, save_c
                        setup_logger)
 from .io_utils.checkpoint import CKPT_NAME
 from .models.build import get_model
+from .parallel import barrier, broadcast_params, is_main, launch
 from .train import eval_setup
 
 logger = logging.getLogger(__name__)
@@ -55,6 +58,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         raise ValueError("the adapt CLI trains DANN on KRN: pass --perform_dann and "
                          "--model_name krn")
     check_ported(cfg)
+    resolve_device(cfg)
+    return launch(_adapt, cfg)
+
+
+def _adapt(cfg) -> List[dict]:
     device = resolve_device(cfg)
     setup_logger("train")
     logger.info("Random seed value: %d", cfg.seed)
@@ -66,10 +74,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
     os.makedirs(cfg.savedir, exist_ok=True)
     logger.info("Checkpoints will be saved to %s", cfg.savedir)
-    writer = SummaryWriter(cfg.logdir)
+    writer = SummaryWriter(cfg.logdir) if is_main() else None
     if cfg.auto_resume and checkpoint_exists(cfg.savedir):
         check_resume_compat(cfg, cfg.savedir)
-    save_cfg(cfg, cfg.savedir)
+    barrier(device)  # every rank has read the snapshot before rank 0 rewrites it
+    if is_main():
+        save_cfg(cfg, cfg.savedir)
 
     model = get_model(cfg).to(device, memory_format=torch.channels_last)  # RevGrad
     source_loader = make_dataloader(cfg, device)
@@ -83,6 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         state.restore(ckpt)
         begin_epoch = int(ckpt["epoch"])
         best_perf = begin_epoch
+    broadcast_params(model)
 
     train_step = make_dann_train_step(cfg, device)
     validate = cfg.test_epoch > 0
@@ -110,10 +121,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
             is_best = perf > best_perf
             best_perf = max(best_perf, perf)
             if (epoch + 1) % cfg.save_epoch == 0 or epoch + 1 == cfg.max_epochs:
-                save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name, best_perf),
-                                is_best, cfg.savedir)
+                if is_main():
+                    save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
+                                                             best_perf),
+                                    is_best, cfg.savedir)
+                barrier(device)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return records
 
 

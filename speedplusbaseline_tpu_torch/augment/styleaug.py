@@ -50,17 +50,21 @@ class StyleAugmentor:
     aug = StyleAugmentor(alpha, stats, dtype, device)
     aug.ghiasi.load_state_dict(load_ghiasi_params(path))   # or random init
     out = aug(images, generator)
+
+    ``phase_space`` runs the generator's phase-space lowering (the JAX
+    augmentor's ``tpu_opt``, its default on an accelerator); the port's
+    default is the plain lowering.
     """
 
     def __init__(self, alpha: float, stats, dtype: torch.dtype = torch.float32,
-                 device: torch.device = torch.device("cuda")):
+                 device: torch.device = torch.device("cuda"), phase_space: bool = False):
         self.alpha = float(alpha)
         self.device = torch.device(device)
         A, mean, base = stats
         self.A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
         self.mean = torch.as_tensor(mean, dtype=torch.float32, device=self.device)
         self.base = torch.as_tensor(base, dtype=torch.float32, device=self.device)
-        self.ghiasi = Ghiasi(dtype).to(self.device).eval().requires_grad_(False)
+        self.ghiasi = Ghiasi(dtype, phase_space).to(self.device).eval().requires_grad_(False)
 
     def sample_embedding(self, n: int, generator: Optional[torch.Generator] = None,
                          z: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Configuration: the JAX package's CLI surface (``speedplusbaseline_tpu/
-config.py``), flag for flag, plus the device choice and the list of flags
-this port does not serve yet.
+config.py``), flag for flag, plus the device choice.
 
 Every flag keeps its name, type and default, so a command line written for
 ``train.py`` parses here unchanged. ``--no_cuda`` asks for the CPU; without
@@ -75,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     # ----- Additions of the JAX package (not in the reference)
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="Data-parallel device count (0 = all local devices)")
+                        help="Data-parallel process count (0 = every local CUDA device; "
+                             "1 with --no_cuda, where N > 1 runs N processes over gloo)")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="If set, capture a profiler trace here")
     parser.add_argument("--eval_batch_size", type=int, default=32,
@@ -108,26 +108,15 @@ def default_cfg(**overrides) -> SimpleNamespace:
     return cfg
 
 
-# (flag, test on cfg, reason) for options the port does not serve yet.
-_UNPORTED = (
-    ("--num_devices", lambda c: c.num_devices != 0,
-     "data parallelism over several devices is not ported yet"),
-)
-
-
 def check_ported(cfg) -> None:
     """Raise ValueError for a model name that is neither krn nor spn, or
-    for DANN on another model than KRN, and NotImplementedError for a flag
-    this port does not serve."""
+    for DANN on another model than KRN."""
     from .models.build import MODEL_NAMES
 
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"--model_name must be krn or spn, got {cfg.model_name!r}")
     if cfg.dann and cfg.model_name != "krn":
         raise ValueError("--perform_dann adapts KRN only (--model_name krn)")
-    for flag, test, reason in _UNPORTED:
-        if test(cfg):
-            raise NotImplementedError(f"{flag}: {reason}")
 
 
 def resolve_device(cfg) -> torch.device:

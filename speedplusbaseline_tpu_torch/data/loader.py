@@ -12,6 +12,13 @@ own counterpart of ``speedplusbaseline_tpu/data/loader.py``).
 Training drops a short last batch; evaluation keeps it as a shorter batch
 (the JAX package pads it to a static shape and masks the padding; torch
 needs no static shape), so every test row is scored once, in CSV order.
+
+Under data parallelism (``world`` ranks), ``batch_size`` is the global
+batch: every rank walks the same index order and loads only its contiguous
+rows of each global batch, as the JAX loader's ``_local_slice``. An eval
+batch is padded (with copies of its first row) up to a multiple of
+``world`` rows, so every rank holds as many, and carries a ``valid`` mask
+of its real rows, as the JAX loader's ``_local_pad_target``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from ..parallel.mesh import rank_rows, rank_world
+
 
 def _stack(samples) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
@@ -31,7 +40,7 @@ def _stack(samples) -> Dict[str, np.ndarray]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, device: torch.device,
                  shuffle: bool = True, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 2021, drop_last: bool = True):
+                 seed: int = 2021, drop_last: bool = True, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -40,6 +49,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.drop_last = drop_last
+        self.rank, self.world = rank, world
         self.epoch = 0
 
     def __len__(self):
@@ -57,6 +67,19 @@ class DataLoader:
         rng = np.random.Generator(np.random.Philox(key=np.uint64(
             [(self.seed << 20) + self.epoch, 0x5EEDF00D])))
         return rng.permutation(n)
+
+    def local_rows(self, idxs: np.ndarray):
+        """This rank's indices of a global batch ``idxs``, and the ``valid``
+        mask of its rows for an eval batch under data parallelism (None
+        otherwise)."""
+        if self.world == 1:
+            return idxs, None
+        if self.drop_last:
+            return idxs[rank_rows(len(idxs), self.rank, self.world)], None
+        target = -(-self.batch_size // self.world) * self.world
+        padded = np.concatenate([idxs, np.full(target - len(idxs), idxs[0])])
+        rows = rank_rows(target, self.rank, self.world)
+        return padded[rows], (np.arange(target)[rows] < len(idxs)).astype(np.float32)
 
     def host_batches(self) -> Iterator[Dict[str, torch.Tensor]]:
         """Batches as host tensors (pinned when the target is a GPU), made
@@ -77,12 +100,15 @@ class DataLoader:
                     for b in range(nb):
                         if stop.is_set():
                             return
-                        idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                        idxs, valid = self.local_rows(
+                            order[b * self.batch_size:(b + 1) * self.batch_size])
                         samples = list(pool.map(
                             lambda i: self.dataset.__getitem__(int(i), epoch=epoch),
                             idxs))
                         batch = {k: torch.from_numpy(v)
                                  for k, v in _stack(samples).items()}
+                        if valid is not None:
+                            batch["valid"] = torch.from_numpy(valid)
                         if pin:
                             batch = {k: v.pin_memory() for k, v in batch.items()}
                         out_q.put(batch)
@@ -122,13 +148,14 @@ def make_dataloader(cfg, device: torch.device, is_train: bool = True, is_source:
     unlabelled target stream (the test domain's CSV, images only). Eval (the
     test CSV): cfg.eval_batch_size, CSV order, half the workers, the short
     last batch kept (the reference evaluates batch 1; per-image results are
-    the same)."""
+    the same). Under data parallelism, this rank's rows of each."""
     from .csv_dataset import build_dataset
 
+    rank, world = rank_world() or (0, 1)
     if is_train:
         return DataLoader(build_dataset(cfg, True, is_source, load_labels), cfg.batch_size,
                           device, shuffle=True, num_workers=cfg.num_workers,
-                          seed=cfg.seed)
+                          seed=cfg.seed, rank=rank, world=world)
     return DataLoader(build_dataset(cfg, is_train=False, is_source=False), cfg.eval_batch_size,
                       device, shuffle=False, num_workers=max(1, cfg.num_workers // 2),
-                      seed=cfg.seed, drop_last=False)
+                      seed=cfg.seed, drop_last=False, rank=rank, world=world)

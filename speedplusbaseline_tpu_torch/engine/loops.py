@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..io_utils.meters import AverageMeter, report_progress
+from ..parallel.mesh import global_rows, is_main
 
 
 def _meter_names(model_name: str, dann: bool = False):
@@ -107,7 +108,12 @@ def run_validation(epoch, cfg, eval_step, model, loader, writer):
     (inference.py:95-142): meters eR/eT/speed (raw)/speed (thr), the
     ``Valid/`` scalars and err_q.txt, err_t.txt, speed_raw.txt and
     speed_mod.txt in cfg.logdir, one ``%.5f`` line per test row in CSV
-    order. One readback per batch. Returns the four meters."""
+    order. One readback per batch. Returns the four meters.
+
+    Under data parallelism every rank scores its rows of each batch; the
+    per-row results and the ``valid`` mask go to every rank through one
+    ``all_reduce`` of a zero-filled global buffer, the padding is dropped,
+    and rank 0 alone writes the scalars and the dumps."""
     time_meter = AverageMeter("ms")
     meters = {"eR": AverageMeter("deg"), "eT": AverageMeter("m"),
               "speed (raw)": AverageMeter("-"), "speed (thr)": AverageMeter("-")}
@@ -118,8 +124,11 @@ def run_validation(epoch, cfg, eval_step, model, loader, writer):
     start = time.time()
     for idx, batch in enumerate(loader):
         out = eval_step(model, batch)
-        vals = torch.stack([out[k].float() for k in _EVAL_KEYS]).cpu().numpy()
-        out = dict(zip(_EVAL_KEYS, vals))
+        vals = torch.stack([out[k].float() for k in _EVAL_KEYS])
+        if "valid" in batch:
+            vals = global_rows(torch.cat([vals, batch["valid"].view(1, -1).float()]).T).T
+            vals = vals[:-1, vals[-1] > 0.5]
+        out = dict(zip(_EVAL_KEYS, vals.cpu().numpy()))
         B = vals.shape[1]
         for k, v in dumps.items():
             v.extend(out[k].tolist())
@@ -136,6 +145,8 @@ def run_validation(epoch, cfg, eval_step, model, loader, writer):
                         acc=acc_meter)
         start = time.time()
 
+    if not is_main():
+        return meters
     if writer is not None:
         writer.add_scalar("Valid/err_q [deg]", meters["eR"].avg, epoch)
         writer.add_scalar("Valid/err_t [m]", meters["eT"].avg, epoch)

@@ -28,6 +28,15 @@ weighted mean of the class quaternions and the Gauss-Newton position from
 the csv bbox. The pose and score are thousands of small kernels whose
 launches, not their work, set the time; with no sync in them they are
 captured once per batch size as a CUDA graph and replayed.
+
+Under data parallelism (``parallel/mesh.py``: a default process group) a
+step gets this rank's rows of the global batch. The train steps draw every
+random number of the global batch from the (seed, step) generator, in the
+one-process order, and keep their rows: the aug draws, the style normals
+and SPN's dropout masks, and both of DANN's streams. The loss is the global
+batch's, from this rank's outputs and the other ranks' (``global_rows``),
+and the gradients are summed over the ranks before the clip. So N ranks
+take the one-process step of the same global batch.
 """
 from __future__ import annotations
 
@@ -39,9 +48,11 @@ from ..augment.photometric import apply_augment, draw_augment
 from ..geometry import (compute_position_spn_batched, f32_math, keypoints_to_pose,
                         weighted_mean_quaternion)
 from ..metrics import speed_score_batched
+from ..models.ghiasi import EMBED_DIM
 from ..models.krn import krn_loss
 from ..models.revgrad import bce_with_logits
 from ..models.spn import spn_loss
+from ..parallel.mesh import all_reduce_grads, global_batch, global_rows
 from .optim import clip_gradients
 from .state import TrainState
 
@@ -71,15 +82,17 @@ def krn_step(state: TrainState, images: torch.Tensor, keypts: torch.Tensor,
     model.train()
     with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
         xc, yc = model(x)
-    loss, sm = krn_loss(xc.float(), yc.float(), kp)
+    loss, sm = krn_loss(*(global_rows(t) for t in (xc.float(), yc.float(), kp)))
     return _update(state, "krn", loss, sm)
 
 
 def _update(state: TrainState, model_name: str, loss, sm,
             dann: bool = False) -> Dict[str, torch.Tensor]:
-    """Backward, the model's clip, the optimizer step; the detached loss terms."""
+    """Backward, the sum of the gradients over the ranks, the model's clip,
+    the optimizer step; the detached loss terms."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(state.model.parameters())
     clip_gradients(model_name, state.model.parameters(), dann)
     state.optimizer.step()
     state.step += 1
@@ -87,8 +100,18 @@ def _update(state: TrainState, model_name: str, loss, sm,
 
 
 def _draws(gen: torch.Generator, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The aug draws of one (B, H, W, 3) batch."""
-    return draw_augment(gen, images.shape[0], (images.shape[3], images.shape[1], images.shape[2]))
+    """The aug draws of this rank's rows of the global batch of which
+    ``images`` (B, H, W, 3) are the rows (the whole batch in one process)."""
+    total, rows = global_batch(images.shape[0])
+    d = draw_augment(gen, total, (images.shape[3], images.shape[1], images.shape[2]))
+    return {k: v[rows] for k, v in d.items()}
+
+
+def _style_normals(gen: torch.Generator, n: int) -> torch.Tensor:
+    """The style augmentor's embedding normals for this rank's ``n`` rows of
+    the global batch: the draw ``StyleAugmentor.sample_embedding`` makes."""
+    total, rows = global_batch(n)
+    return torch.randn((total, EMBED_DIM), generator=gen, device=gen.device)[rows]
 
 
 def make_krn_train_step(cfg, device: torch.device, style_aug=None):
@@ -101,8 +124,11 @@ def make_krn_train_step(cfg, device: torch.device, style_aug=None):
 
     def train_step(state: TrainState, batch, styled: bool):
         gen.manual_seed((cfg.seed << 32) + state.step)
-        return krn_step(state, batch["image"], batch["keypts"], _draws(gen, batch["image"]),
-                        cfg.fp16, style_aug if styled else None, gen)
+        images = batch["image"]
+        draws = _draws(gen, images)
+        z = _style_normals(gen, images.shape[0]) if styled else None
+        return krn_step(state, images, batch["keypts"], draws, cfg.fp16,
+                        style_aug if styled else None, gen, z)
 
     return train_step
 
@@ -123,7 +149,9 @@ def dann_step(state: TrainState, src_images: torch.Tensor, keypts: torch.Tensor,
     with torch.autocast(xs.device.type, dtype=torch.bfloat16, enabled=fp16):
         (xc, yc), dom_src = model(xs, alpha)
         _, dom_tgt = model(xt, alpha)
-    loss_pose, _ = krn_loss(xc.float(), yc.float(), kp)
+    xc, yc, kp, dom_src, dom_tgt = (global_rows(t) for t in (xc.float(), yc.float(), kp,
+                                                             dom_src, dom_tgt))
+    loss_pose, _ = krn_loss(xc, yc, kp)
     loss_source = bce_with_logits(dom_src, torch.ones_like(dom_src))
     loss_target = bce_with_logits(dom_tgt, torch.zeros_like(dom_tgt))
     sm = {"loss_pose": loss_pose, "loss_source": loss_source, "loss_target": loss_target}
@@ -167,10 +195,11 @@ def spn_step(state: TrainState, images: torch.Tensor, y_classes: torch.Tensor,
         x = style_aug(x, generator, z).to(x.dtype)
     model = state.model
     model.train()
+    total, rows = global_batch(x.shape[0])
     with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
-        classes, weights = model(x, generator)
-    loss, sm = spn_loss(classes.float(), weights.float(), y_classes.float(),
-                        y_weights.float())
+        classes, weights = model(x, generator, (rows.start or 0, total))
+    loss, sm = spn_loss(*(global_rows(t.float()) for t in (classes, weights, y_classes,
+                                                             y_weights)))
     return _update(state, "spn", loss, sm)
 
 
@@ -181,8 +210,10 @@ def make_spn_train_step(cfg, device: torch.device, style_aug=None):
 
     def train_step(state: TrainState, batch, styled: bool):
         gen.manual_seed((cfg.seed << 32) + state.step)
-        return spn_step(state, batch["image"], batch["y_classes"], batch["y_weights"],
-                        cfg.fp16, style_aug if styled else None, gen)
+        images = batch["image"]
+        z = _style_normals(gen, images.shape[0]) if styled else None
+        return spn_step(state, images, batch["y_classes"], batch["y_weights"],
+                        cfg.fp16, style_aug if styled else None, gen, z)
 
     return train_step
 

@@ -1,6 +1,5 @@
 """Ghiasi arbitrary-style-transfer generator (counterpart of
-``speedplusbaseline_tpu/models/ghiasi.py``, plain lowering; reference
-ghiasi.py:106-136).
+``speedplusbaseline_tpu/models/ghiasi.py``; reference ghiasi.py:106-136).
 
 Three unconditioned downsampling ConvInRelu layers, five FiLM-conditioned
 residual blocks, two FiLM-conditioned upsample layers and a 9x9 output conv
@@ -16,6 +15,14 @@ XLA.
 weights are cast to it, FiLM stays f32, and the output is the sigmoid cast to
 ``dtype``. Tensors are NCHW in channels_last memory; the kernels see the
 (B, H, W, C) view of the same storage.
+
+``Ghiasi(phase_space=True)`` is the JAX module's ``tpu_opt``: the
+full-resolution layers run as the phase-space rewrites of
+``ops/phase_conv.py`` (every conv at half resolution with 4x the channels,
+reflect pads in phase space, the nearest upsamples folded into subpixel
+convs), from the same parameters, so checkpoints and the converters serve
+both lowerings. The residual blocks still run B1 and the instance norms of
+layers 1-2 B2. The port's default is the plain lowering.
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.instancenorm import instance_norm_film
+from ..ops.phase_conv import (conv3x3_s2_phase_aligned, conv9x9_phase, conv9x9_phase_dp,
+                              depth_to_space2, phase_instance_norm_packed,
+                              phase_weights_9x9, phase_weights_9x9_dp,
+                              phase_weights_s2_aligned, phase_weights_up_aligned,
+                              space_to_depth2, upconv3x3_phase_packed)
 from ..ops.resblock import ghiasi_resblock
 
 EMBED_DIM = 100
@@ -121,12 +133,23 @@ class ResidualBlock(nn.Module):
         return _nchw(out)
 
 
-class Ghiasi(nn.Module):
-    """Full generator (ghiasi.py:106-136): sigmoid(conv_stack(x, style))."""
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0).float()
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+
+class Ghiasi(nn.Module):
+    """Full generator (ghiasi.py:106-136): sigmoid(conv_stack(x, style)).
+
+    ``phase_space`` selects the phase-space lowering (the JAX module's
+    ``tpu_opt``), whose output layer emits the double-packed phase tensor
+    (conv9x9_phase_dp), as the JAX module's default. The rewritten kernels
+    are non-persistent buffers, made at init and remade after every
+    ``load_state_dict``, as ``ResidualBlock`` keeps B1's."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32, phase_space: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.phase_space = phase_space
         self.layer0 = ConvInRelu(3, 32, 9, 1)
         self.layer1 = ConvInRelu(32, 64, 3, 2)
         self.layer2 = ConvInRelu(64, 128, 3, 2)
@@ -135,6 +158,22 @@ class Ghiasi(nn.Module):
         self.layer8 = UpsampleConvInRelu(128, 64, 3, upsample=2)
         self.layer9 = UpsampleConvInRelu(64, 32, 3, upsample=2)
         self.layer10 = UpsampleConvInRelu(32, 3, 9, use_relu=False)
+        if phase_space:
+            for layer in (0, 1, 2, 8, 9, 10):
+                self.register_buffer(f"phase_w{layer}", None, persistent=False)
+            self._refresh_phase()
+            self.register_load_state_dict_post_hook(
+                lambda module, _incompatible: module._refresh_phase())
+
+    @torch.no_grad()
+    def _refresh_phase(self) -> None:
+        """The phase-space kernels (HWIO, f32) of the current conv weights."""
+        self.phase_w0 = phase_weights_9x9(_hwio(self.layer0.conv))
+        self.phase_w1 = phase_weights_s2_aligned(_hwio(self.layer1.conv))
+        self.phase_w2 = phase_weights_s2_aligned(_hwio(self.layer2.conv))
+        self.phase_w8 = phase_weights_up_aligned(_hwio(self.layer8.conv))
+        self.phase_w9 = phase_weights_up_aligned(_hwio(self.layer9.conv))
+        self.phase_w10 = phase_weights_9x9_dp(_hwio(self.layer10.conv))
 
     def forward(self, x, styles):
         """x: (B, 3, H, W) in [0, 1]; styles: (B, 100). Returns
@@ -146,6 +185,8 @@ class Ghiasi(nn.Module):
         with torch.autocast(x.device.type, enabled=False):
             x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
             styles = styles.float()
+            if self.phase_space:
+                return self._phase_forward(x, styles)
             x = self.layer2(self.layer1(self.layer0(x)))
             for i in range(5):
                 x = getattr(self, f"layer{3 + i}")(x, styles)
@@ -153,3 +194,44 @@ class Ghiasi(nn.Module):
             x = self.layer9(x, styles)
             x = self.layer10(x, styles)
             return torch.sigmoid(x.float()).to(self.dtype)
+
+    def _phase_forward(self, x: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        """The JAX module's ``_phase_forward``, layer for layer. A side that
+        is not a multiple of 4 is first reflect-padded up to one (227 ->
+        228): the plain lowering's output is 4 ceil(H/4) too, and only a
+        band along the padded border differs from it."""
+        ph, pw = -x.shape[2] % 4, -x.shape[3] % 4
+        if ph or pw:
+            x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+        x = _nhwc(x)
+
+        # layer0: 9x9 3 -> 32 as a 5x5 conv on the phases: (B, H/2, W/2, 4*32)
+        a = conv9x9_phase(space_to_depth2(x), None, self.layer0.conv.bias,
+                          phase_w=self.phase_w0)
+        a = F.relu(phase_instance_norm_packed(a)).to(self.dtype)
+        # layer1: 3x3 s2 32 -> 64; its s2d input is layer0's phase output
+        y = conv3x3_s2_phase_aligned(a, None, self.layer1.conv.bias, phase_w=self.phase_w1)
+        y = instance_norm_film(y.contiguous(), relu=True)
+        # layer2: 3x3 s2 64 -> 128
+        y = conv3x3_s2_phase_aligned(space_to_depth2(y), None, self.layer2.conv.bias,
+                                     phase_w=self.phase_w2)
+        y = _nchw(instance_norm_film(y.contiguous(), relu=True))
+        for i in range(5):
+            y = getattr(self, f"layer{3 + i}")(y, styles)
+
+        # layer8: up2 + 3x3 128 -> 64 as one subpixel conv (packed phases)
+        l8 = self.layer8
+        z = upconv3x3_phase_packed(_nhwc(y), None, l8.conv.bias, phase_w=self.phase_w8)
+        z = F.relu(phase_instance_norm_packed(z, l8.fc_gamma(styles), l8.fc_beta(styles)))
+        y = depth_to_space2(z).to(self.dtype)
+        # layer9: up2 + 3x3 64 -> 32; its packed output is layer10's s2d input
+        l9 = self.layer9
+        z = upconv3x3_phase_packed(y, None, l9.conv.bias, phase_w=self.phase_w9)
+        a = F.relu(phase_instance_norm_packed(z, l9.fc_gamma(styles),
+                                              l9.fc_beta(styles))).to(self.dtype)
+        # layer10: 9x9 32 -> 3 + IN + FiLM, no ReLU. The padded input makes
+        # a's sides even, which the double-packed form needs.
+        l10 = self.layer10
+        z = conv9x9_phase_dp(a, None, l10.conv.bias, phase_w=self.phase_w10)
+        z = phase_instance_norm_packed(z, l10.fc_gamma(styles), l10.fc_beta(styles), phases=16)
+        return _nchw(depth_to_space2(depth_to_space2(torch.sigmoid(z.float()).to(self.dtype))))

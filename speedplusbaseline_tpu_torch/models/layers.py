@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum, rank_world
+
 
 class BatchNorm(nn.Module):
     """BatchNorm2d with flax's running-statistics update.
@@ -20,6 +22,15 @@ class BatchNorm(nn.Module):
     variance is corrected to the biased update from the C-length vectors
     alone, with no second pass over the activation. Flax ``momentum=0.9`` is
     torch ``momentum=0.1``.
+
+    Under data parallelism (a default process group), training mode
+    normalizes with the statistics of the global batch, as the JAX step
+    sharded over a mesh does: the per-channel sum(x) and sum(x^2) of this
+    rank's rows, in f32 (or x's wider dtype), are summed over the ranks by
+    an autograd-aware ``all_reduce`` (``parallel.all_reduce_sum``), and
+    mean and biased variance follow flax's E[x^2] - E[x]^2 over the global
+    count. Not ``nn.SyncBatchNorm``, whose running variance takes the
+    unbiased update.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -35,6 +46,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if rank_world() is not None:
+            return self._global_batch_norm(x)
         m = self.momentum
         n = x.numel() // x.shape[1]
         # F.batch_norm updates a copy (its backward keeps the tensor it was
@@ -48,6 +61,22 @@ class BatchNorm(nn.Module):
             self.running_var.copy_((1.0 - m) * old
                                    + (new_var - (1.0 - m) * old) * ((n - 1) / n))
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        c, world = x.shape[1], rank_world()[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                         xf.square().sum(dim=(0, 2, 3))]))
+        n = x.numel() // c * world  # every rank holds as many rows
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:] / n - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean.to(self.running_mean.dtype))
+            self.running_var.mul_(1.0 - m).add_(m * var.to(self.running_var.dtype))
+        scale = self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)
+        shift = self.bias.to(xf.dtype) - mean * scale
+        return (xf * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)).to(x.dtype)
 
 
 class ConvBN(nn.Module):

@@ -14,7 +14,7 @@ larger than 1x1.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,16 +42,20 @@ def _maxpool(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Drop each element with probability ``p`` and scale the survivors by
     1 / (1 - p), with the mask drawn from ``generator``; the identity in eval
-    mode and at p = 0."""
+    mode and at p = 0. With ``rows`` = (offset, total), ``x`` holds rows
+    offset: of a batch of ``total``: the mask of the whole batch is drawn
+    and those rows kept, so the ranks of a data-parallel step draw the masks
+    of the one-process step."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
+    offset, total = rows or (0, x.shape[0])
+    keep = torch.rand((total, *x.shape[1:]), generator=generator, device=x.device) >= p
+    return x * keep[offset:offset + x.shape[0]].to(x.dtype) / (1.0 - p)
 
 
 class SpacecraftPoseNet(nn.Module):
@@ -73,11 +77,12 @@ class SpacecraftPoseNet(nn.Module):
             self.add_module(b, nn.Linear(4096, 4096))
             self.add_module(c, nn.Linear(4096, num_classes))
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """(B, 3, H, W) images in [0, 1] -> (classes, weights), each
         (B, num_classes) float32. The input is cast to the parameters' dtype,
         as the flax module casts it to its ``dtype``; in train mode the four
-        dropout masks come from ``generator``."""
+        dropout masks come from ``generator`` (``rows``: see ``dropout``)."""
         x = x.to(self.conv1.weight.dtype)
         x = self.norm1(_maxpool(F.relu(self.conv1(x))))
         x = self.norm2(_maxpool(F.relu(self.conv2(x))))
@@ -87,7 +92,7 @@ class SpacecraftPoseNet(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # HWC, as flax
 
         def drop(y):
-            return dropout(y, self.keep_prob, generator, self.training)
+            return dropout(y, self.keep_prob, generator, self.training, rows)
 
         c = drop(F.relu(self.fc6(x)))
         c = drop(F.relu(self.fc7(c)))

@@ -55,14 +55,16 @@ def build_dann(dev: torch.device, fp16: bool):
     return state, lambda st, b, styled: dann(st, b["source"], b["target"], DANN_ALPHA), batch
 
 
-def build(dev: torch.device, model_name: str = "krn"):
-    """(state, train_step, batch) for the styled recipe of ``model_name``."""
+def build(dev: torch.device, model_name: str = "krn", phase_space: bool = False):
+    """(state, train_step, batch) for the styled recipe of ``model_name``;
+    ``phase_space`` restyles with the generator's phase-space lowering."""
     S = SIZE[model_name]
     cfg = default_cfg(model_name=model_name, optimizer="adamw", weight_decay=0.01, fp16=True,
                       batch_size=BATCH, input_shape=(S, S), num_classes=SPN_CLASSES)
     model = get_model(cfg).to(dev, memory_format=torch.channels_last)
     state = TrainState(model, build_optimizer(cfg, model.parameters()))
-    aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.bfloat16, dev)
+    aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.bfloat16, dev,
+                         phase_space)
     aug.ghiasi.load_state_dict(load_ghiasi_params(
         os.path.join(default_assets_dir(), "ghiasi_params.msgpack")))
     rs = np.random.RandomState(0)

@@ -12,7 +12,8 @@ its ``checkpoint.pt`` (the ``"variables"`` key), and the JAX package's
 ``model_best.msgpack`` or ``checkpoint.msgpack`` (read without flax, then
 converted). A missing file raises ``FileNotFoundError``: random weights are
 never scored quietly. Without ``--pretrained`` the seeded random init is
-scored, as in the JAX CLI.
+scored, as in the JAX CLI. ``--num_devices N`` scores over N data-parallel
+ranks (rank 0 writes the dumps and the results file).
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -31,6 +32,7 @@ from .convert import flax_to_state_dict, read_flax_msgpack
 from .engine.loops import run_validation
 from .io_utils import AverageMeter, setup_logger
 from .models.build import get_model
+from .parallel import is_main, launch
 from .train import eval_setup
 
 logger = logging.getLogger(__name__)
@@ -50,9 +52,15 @@ def load_pretrained(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, AverageMeter]:
-    """Evaluate; returns the meters {eR, eT, speed (raw), speed (thr)}."""
+    """Evaluate; returns the meters {eR, eT, speed (raw), speed (thr)}
+    (rank 0's under data parallelism)."""
     cfg = parse_cfg(argv)
     check_ported(cfg)
+    resolve_device(cfg)
+    return launch(_test, cfg)
+
+
+def _test(cfg) -> Dict[str, AverageMeter]:
     device = resolve_device(cfg)
     setup_logger("test")
     os.makedirs(cfg.logdir, exist_ok=True)
@@ -69,6 +77,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, AverageMeter]:
 
     test_loader, eval_step = eval_setup(cfg, device)
     performances = run_validation(0, cfg, eval_step, model, test_loader, None)
+    if not is_main():
+        return performances
 
     # Averaged results file (reference test.py:79-88).
     writefn = osp.join(cfg.logdir, cfg.resultfn)

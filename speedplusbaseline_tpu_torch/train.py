@@ -17,8 +17,11 @@ train RevGrad's ``net`` alone. ``--profile_dir`` records ``torch.profiler``
 writes a Chrome trace there, as the JAX trainer (train.py:162-189) captures
 from its second epoch; a one-epoch run writes none. ``--cache_dir`` and
 ``--use_native_loader`` go to the datasets (data/csv_dataset.py).
-Multi-device runs are not ported yet; their flag raises
-``NotImplementedError`` (config.check_ported).
+``--num_devices N`` trains data-parallel over N processes, each on its rows
+of every global batch of ``--batch_size`` (parallel/mesh.py): spawned here
+(N CUDA devices over NCCL; with ``--no_cuda``, N CPU processes over gloo),
+or one rank each under ``torchrun``. Rank 0 alone writes the scalars, the
+dumps and the checkpoints.
 
 Runs on CUDA unless ``--no_cuda`` is given; with no GPU and no ``--no_cuda``
 it raises.
@@ -47,6 +50,7 @@ from .io_utils import (SummaryWriter, checkpoint_exists, default_assets_dir,
 from .io_utils.checkpoint import CKPT_NAME
 from .models.build import get_model
 from .models.weight_convert import maybe_load_pretrained
+from .parallel import barrier, broadcast_params, is_main, launch
 
 logger = logging.getLogger(__name__)
 
@@ -111,12 +115,18 @@ def eval_setup(cfg, device: torch.device):
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     """Train; returns one record per step ({epoch, step, styled, ms} and the
-    loss terms: loss_x, loss_y for KRN, loss_c, loss_r for SPN)."""
+    loss terms: loss_x, loss_y for KRN, loss_c, loss_r for SPN), rank 0's
+    under data parallelism."""
     cfg = parse_cfg(argv)
     check_ported(cfg)
     if cfg.dann:
         raise ValueError("--perform_dann: DANN adaptation runs through the adapt CLI, "
                          "python -m speedplusbaseline_tpu_torch.adapt")
+    resolve_device(cfg)
+    return launch(_train, cfg)
+
+
+def _train(cfg) -> List[dict]:
     device = resolve_device(cfg)
     setup_logger("train")
     logger.info("Random seed value: %d", cfg.seed)
@@ -128,11 +138,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
     os.makedirs(cfg.savedir, exist_ok=True)
     logger.info("Checkpoints will be saved to %s", cfg.savedir)
-    writer = SummaryWriter(cfg.logdir)
+    writer = SummaryWriter(cfg.logdir) if is_main() else None
     logger.info("Logs will be saved to %s", cfg.logdir)
     if cfg.auto_resume and checkpoint_exists(cfg.savedir):
         check_resume_compat(cfg, cfg.savedir)
-    save_cfg(cfg, cfg.savedir)
+    barrier(device)  # every rank has read the snapshot before rank 0 rewrites it
+    if is_main():
+        save_cfg(cfg, cfg.savedir)
 
     model = get_model(cfg).to(device, memory_format=torch.channels_last)
     if cfg.model_name == "spn":
@@ -157,6 +169,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         held = [p for group in state.optimizer.param_groups for p in group["params"]]
         assert len(held) == len(list(model.parameters())) and all(
             a is b for a, b in zip(held, model.parameters()))
+    broadcast_params(model)
     if cfg.fp16:
         logger.info("bf16 autocast enabled (f32 parameters, no loss scaling)")
 
@@ -170,7 +183,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     prof = None
     try:
         for epoch in range(begin_epoch, cfg.max_epochs):
-            if cfg.profile_dir and epoch == begin_epoch + 1:
+            if cfg.profile_dir and epoch == begin_epoch + 1 and is_main():
                 prof, first_profiled = start_profiler(device), epoch + 1
             lr_value = schedule(state.step)
             set_lr(state.optimizer, lr_value)
@@ -185,9 +198,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
             is_best = perf > best_perf
             best_perf = max(best_perf, perf)
             if (epoch + 1) % cfg.save_epoch == 0 or epoch + 1 == cfg.max_epochs:
-                save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
-                                                         best_perf),
-                                is_best, cfg.savedir)
+                if is_main():
+                    save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
+                                                             best_perf),
+                                    is_best, cfg.savedir)
+                barrier(device)
         if prof is not None:
             prof.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -199,7 +214,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     finally:
         if prof is not None:  # an error left it running
             prof.stop()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return records
 
 

@@ -11,7 +11,9 @@ module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 + 1e-4 |ref| (B1,
 differently). EPnP: card against CPU f32 on 1-px-noisy keypoints, q within
 1e-4 after sign alignment and t within 1e-3 m (the two refinements stop at
 one minimum, f32 rounding apart), with no host sync in the call, and its
-CUDA graph replay equal to the eager call; SPN's pose the same way.
+CUDA graph replay equal to the eager call; SPN's pose the same way. Then
+the phase-space Ghiasi against the plain one on the card, and two
+data-parallel ranks over gloo on one card against one process.
 """
 import numpy as np
 import pytest
@@ -284,3 +286,56 @@ def test_cached_and_native_loaders_feed_the_card(dev, cached_data, cache, native
         for k in ("image", "keypts"):
             assert g[k].device.type == "cuda"
             assert torch.equal(g[k].cpu(), c[k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", [224, 227])
+def test_ghiasi_phase_space_on_card_matches_plain(dev, dtype, side):
+    """The phase-space lowering against the plain one on the card, both with
+    B1 and B2, at the main paths' sides and batch 2 on the shipped weights:
+    227 against the plain lowering of the input reflect-padded to 228. f32
+    within 1e-4 + 1e-4 |ref| (convs summed in another order); bf16 against
+    the plain f32 output within 2^-6 (chip_smoke's bf16 generator bound)."""
+    import os
+
+    import torch.nn.functional as F
+
+    from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+
+    sd = load_ghiasi_params(os.path.join(default_assets_dir(), "ghiasi_params.msgpack"))
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(2, 3, side, side, device=dev, generator=g)
+    st = torch.randn(2, 100, device=dev, generator=g) * 0.5
+    nets = {}
+    for phase in (False, True):
+        nets[phase] = Ghiasi(torch.float32 if not phase else dtype, phase_space=phase).to(dev)
+        nets[phase].load_state_dict(sd)
+    with torch.no_grad():
+        ref = nets[False](F.pad(x, (0, -side % 4, 0, -side % 4), mode="reflect"), st)
+        got = nets[True](x, st)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2.0 ** -6, 0.0)
+    _check(got.float(), ref, tol)
+
+
+def test_two_ranks_over_gloo_on_the_card(dev):
+    """Two ranks on one card over gloo with CUDA tensors: one f32 step (TF32
+    off) of the KRN trainer at the main path's 224^2, global batch 32, SGD
+    at 1e-2 as the JAX DP test, against the one-process step on the same
+    batch, within that test's 1e-4; both ranks end equal."""
+    import test_torch_parallel_ranks as ranks
+    from speedplusbaseline_tpu_torch.parallel import spawn
+
+    rs = np.random.RandomState(0)
+    batch = {"image": rs.randint(0, 256, (32, 224, 224, 3)).astype(np.uint8),
+             "keypts": rs.rand(32, 2, 11).astype(np.float32)}
+    cfg = dict(model_name="krn", input_shape=(224, 224), batch_size=32, optimizer="sgd",
+               lr=1e-2, momentum=0.0, weight_decay=0.0)
+    cases = [dict(kind="krn", cfg=cfg, seed=1, batch=batch, dtype="float32")]
+    two = spawn(ranks.run, (cases, "cuda:0"), 2, "gloo")[0]
+    one = ranks.run(cases, dev)[0]
+    assert two["spread"] == 0.0
+    for k, v in one["state"].items():
+        assert np.abs(two["state"][k] - v).max() <= 1e-4, k
+    assert two["losses"]["loss_x"] == pytest.approx(one["losses"]["loss_x"], rel=1e-4)

@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX, and its CLIs refuse what they do not
-serve: a missing GPU without --no_cuda, an unknown model name, DANN in the
-train CLI, and the flag of the part not yet ported (--num_devices)."""
+serve: a missing GPU without --no_cuda, an unknown model name and DANN in
+the train CLI; they accept every flag of the JAX package's CLIs."""
 import os
 import subprocess
 import sys
@@ -54,7 +54,7 @@ def test_port_imports_no_jax():
                             "models.revgrad", "adapt", "preprocess", "data.preprocess",
                             "data.synthetic", "models.weight_convert", "models.style_predictor",
                             "embedding", "convert_weights", "data.cache", "cache_dataset",
-                            "native.loader")} <= mods
+                            "native.loader", "parallel.mesh", "ops.phase_conv")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -70,21 +70,15 @@ def test_test_cli_raises_without_gpu(monkeypatch, tmp_path):
         test_cli.main(["--logdir", str(tmp_path / "l")])
 
 
-@pytest.mark.parametrize("flags", [["--num_devices", "2"]])
-def test_unported_flags_raise(flags, tmp_path):
-    """The three CLIs refuse each flag."""
-    for main in (train.main, test_cli.main, adapt.main):
-        with pytest.raises(NotImplementedError):
-            main(flags + ["--perform_dann"] * (main is adapt.main)
-                 + ["--no_cuda", "--savedir", str(tmp_path / "s"), "--logdir", str(tmp_path / "l")])
-
-
 @pytest.mark.parametrize("flags", [
     ["--profile_dir", "prof"], ["--use_native_loader"], ["--cache_dir", "cache"],
+    ["--num_devices", "2"],
 ])
 def test_ported_flags_are_accepted(flags, tmp_path):
     """The three CLIs take each flag and go on to read their data, which is
-    missing here (the flags' runs: test_torch_data_path.py)."""
+    missing here (the flags' runs: test_torch_data_path.py and, for
+    --num_devices, test_torch_parallel.py, whose ranks raise the error in
+    the calling process)."""
     for main in (train.main, test_cli.main, adapt.main):
         with pytest.raises(FileNotFoundError, match=str(tmp_path / "none")):
             main(flags + ["--perform_dann"] * (main is adapt.main)
