@@ -94,7 +94,17 @@ Phases, each printing its own lines:
                 (224^2 and 227^2 on the input padded to 228, batch 48, f32
                 and bf16, the shipped weights), each lowering's device ms a
                 restyle by CUDA events and by torch.profiler with the share
-                of its two 9x9 convs, and a styled KRN step with each.
+                of its two 9x9 convs, and a styled KRN step with each;
+ 15. quality  -- every quality driver (speedplusbaseline_tpu_torch/quality/)
+                through its module at a small size, its CLIs as
+                subprocesses on the card: KRN memorization (96 frames at
+                224^2, validated on the train split: the best SPEED score
+                under half the first), the DANN A/B, the style-aug A/B's arm C
+                (B1 and B2 must launch; the subprocesses' counts come through
+                SPEEDPLUS_LAUNCH_LOG), the transfer A/B with the boot arm's
+                trunk at step 0 equal to the donor's bit for bit, and SPN
+                conv1-5 through dump_spn_convs and maybe_load_pretrained bit
+                for bit; each driver's final JSON line.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -105,6 +115,7 @@ import json
 import logging
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1257,15 +1268,27 @@ def bvlc_alexnet(rs):
                    (rs.randn(s[-1]) * 0.1).astype(np.float32)] for name, s in shapes.items()}
 
 
+def torch_default_init(model, seed: int):
+    """``model`` with torch's own default init drawn from ``seed``. The
+    seeded stand-ins for the reference's PyTorch checkpoints start as a
+    PyTorch module does, not as the port's models (flax's init)."""
+    import torch
+    import torch.nn as nn
+
+    torch.manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.reset_parameters()
+    return model
+
+
 def checkpoint_transformer(seed: int):
     """A seeded ``checkpoint_transformer.pth`` payload: the Ghiasi
     generator's state_dict under the reference's ``layers.N.*`` keys."""
-    import torch
-
     from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
 
-    torch.manual_seed(seed)
-    sd = {k.replace("layer", "layers.", 1): v for k, v in Ghiasi().state_dict().items()}
+    sd = {k.replace("layer", "layers.", 1): v
+          for k, v in torch_default_init(Ghiasi(), seed).state_dict().items()}
     return {"state_dict_ghiasi": sd}
 
 
@@ -1278,9 +1301,8 @@ def checkpoint_stylepredictor(seed: int):
 
     from speedplusbaseline_tpu_torch.models.style_predictor import StylePredictor
 
-    torch.manual_seed(seed)
     sd = {}
-    for k, v in StylePredictor().state_dict().items():
+    for k, v in torch_default_init(StylePredictor(), seed).state_dict().items():
         if k.endswith("conv.weight"):
             v = torch.randn(v.shape) * (2.0 / v[0].numel()) ** 0.5
         elif k.endswith(("running_mean", "bn.bias")):
@@ -1947,6 +1969,213 @@ DUMPS = {"eR": "err_q.txt", "eT": "err_t.txt", "speed (raw)": "speed_raw.txt",
          "speed (thr)": "speed_mod.txt"}
 
 
+class _Stderr:
+    """Sends file descriptor 2 (this process's and its subprocesses') to a
+    file for the block; ``text`` holds what was written, which is then
+    written to the real stderr too."""
+
+    def __init__(self, path: str):
+        self.path, self.text = path, ""
+
+    def __enter__(self):
+        sys.stderr.flush()
+        self.saved, self.file = os.dup(2), open(self.path, "w")
+        os.dup2(self.file.fileno(), 2)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr.flush()
+        os.dup2(self.saved, 2)
+        os.close(self.saved)
+        self.file.close()
+        with open(self.path) as f:
+            self.text = f.read()
+        sys.stderr.write(self.text)
+        sys.stderr.flush()
+
+
+def check_summary(name: str, summary: dict) -> None:
+    bad = {k: v for k, v in summary.items() if isinstance(v, (int, float))
+           and (not math.isfinite(v) or v == -1)}
+    if bad:
+        fail(f"quality: {name} printed non-finite or missing values {bad}")
+    print(f"phase quality: {name} {json.dumps(summary)}", flush=True)
+
+
+# Phase quality's KRN memorization: 96 frames, 2 steps an epoch, validated on
+# the train split every MEMO_TEST_EVERY epochs. From flax's default init SPEED
+# first fell under half its epoch-20 value at epoch 200 on an H100 (PERF.md
+# §6 PR 11); 260 leaves 30% more steps.
+MEMO_EPOCHS, MEMO_TEST_EVERY = 260, 20
+
+
+def phase_quality(dev):
+    """The quality drivers through their modules on the card at a small size
+    (renders of 320x200, 224^2, batch 48): KRN memorization by
+    convergence_run as a process beside the rest (96 frames, MEMO_EPOCHS
+    epochs, validated on the train split every MEMO_TEST_EVERY; the best
+    SPEED score must be under half the first); the DANN A/B (96 + 96 frames,
+    2 source-only epochs, 1 DANN epoch); the style-aug A/B's
+    arm C on that root (2 epochs, 4 styled steps) and its sunlamp scores on
+    48 frames; the transfer A/B on the DANN A/B's arm A as the donor (2
+    epochs each arm; the boot arm runs the train CLI in this process): the
+    boot arm logs the load from its assets directory and the scratch arm
+    none, and the boot arm starts from the donor's trunk bit for bit;
+    dump_spn_convs of a seeded SPN read back by
+    maybe_load_pretrained bit for bit. The drivers' CLIs are subprocesses:
+    their launch counts come through SPEEDPLUS_LAUNCH_LOG. Returns the
+    phase's launches; B1 and B2 must have launched on arm C."""
+    import torch
+
+    from speedplusbaseline_tpu_torch import train
+    from speedplusbaseline_tpu_torch.config import default_cfg
+    from speedplusbaseline_tpu_torch.models.build import get_model
+    from speedplusbaseline_tpu_torch.models.weight_convert import maybe_load_pretrained
+    from speedplusbaseline_tpu_torch.ops import _build
+    from speedplusbaseline_tpu_torch.quality import (common, dann_adaptation_run,
+                                                     dump_krn_backbone, dump_spn_convs,
+                                                     krn_transfer_run, styleaug_ab_run)
+
+    small = ["--render_w", "320", "--render_h", "200"]
+    saved = {k: os.environ.get(k) for k in (_build.LAUNCH_LOG_ENV, "SPEEDPLUS_ASSETS_DIR")}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "launches.jsonl")
+        os.environ[_build.LAUNCH_LOG_ENV] = log
+        os.environ.pop("SPEEDPLUS_ASSETS_DIR", None)
+        # The memorization runs beside the rest of the phase, as a process
+        # group of its own (the driver and its train CLI), its output in a file.
+        memo_root, memo_out = os.path.join(tmp, "memo"), os.path.join(tmp, "memo.log")
+        with open(memo_out, "w") as out:
+            memo = subprocess.Popen(
+                [sys.executable, "-m", "speedplusbaseline_tpu_torch.quality.convergence_run",
+                 "--root", memo_root, "--n_train", "96", "--epochs", str(MEMO_EPOCHS),
+                 "--test_every", str(MEMO_TEST_EVERY), "--lr_decay_step", "50", "--test_csv",
+                 "train.csv", "--save_epoch", str(MEMO_EPOCHS)] + small,
+                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            t0 = time.time()
+            ab = os.path.join(tmp, "ab")
+            check_summary("dann_adaptation_run", dann_adaptation_run.main(
+                ["--root", ab, "--n_src", "96", "--n_tgt", "96", "--epochs_src", "2",
+                 "--epochs_dann", "1", "--test_every", "1"] + small))
+            print(f"phase quality: DANN A/B {time.time() - t0:.1f} s", flush=True)
+            with open(log) as f:
+                before_c = len(f.readlines())
+            t0 = time.time()
+            n_photo, styleaug_ab_run.N_PHOTO = styleaug_ab_run.N_PHOTO, 48
+            try:
+                check_summary("styleaug_ab_run", styleaug_ab_run.main(
+                    ["--root", ab, "--epochs", "2", "--test_every", "1"] + small))
+            finally:
+                styleaug_ab_run.N_PHOTO = n_photo
+            with open(log) as f:
+                arm_c = [json.loads(x) for x in f.readlines()[before_c:]
+                         if "--randomize_texture" in json.loads(x)["argv"]]
+            if len(arm_c) != 1 or not all(arm_c[0]["launches"].values()):
+                fail(f"quality: arm C's kernel launches {arm_c}: B1 and B2 must launch")
+            print(f"phase quality: style-aug arm C launched {arm_c[0]['launches']}; "
+                  f"{time.time() - t0:.1f} s", flush=True)
+
+            t0 = time.time()
+            xroot, donor = os.path.join(tmp, "xfer"), os.path.join(ab, "save_src",
+                                                                     "model_best.pt")
+            boot_assets = os.path.join(xroot, "boot_assets")
+            run_arm = common.run_arm
+
+            def boot_in_process(cli, args, timeout_s=None, env=None):
+                """The boot arm's train CLI in this process, where _Capture
+                reads its model before the first step; other arms as usual."""
+                if cli != "train" or (env or {}).get("SPEEDPLUS_ASSETS_DIR") != boot_assets:
+                    return run_arm(cli, args, timeout_s, env)
+                os.environ["SPEEDPLUS_ASSETS_DIR"] = boot_assets
+                try:
+                    with _Capture(train) as seen:
+                        train.main(list(args))
+                finally:
+                    os.environ.pop("SPEEDPLUS_ASSETS_DIR", None)
+                print("", flush=True)
+                boot_start.append(seen.model_at_start)
+                return 0.0
+
+            boot_start = []
+            common.run_arm = boot_in_process
+            try:
+                with _Stderr(os.path.join(tmp, "xfer.err")) as err:
+                    check_summary("krn_transfer_run", krn_transfer_run.main(
+                        ["--root", xroot, "--donor", donor, "--epochs", "2", "--test_every",
+                         "1"] + small))
+            finally:
+                common.run_arm = run_arm
+            loads = [x for x in err.text.splitlines()
+                     if "MobileNetV2 ImageNet backbone loaded from" in x]
+            if len(loads) != 1 or not loads[0].endswith(
+                    os.path.join(boot_assets, common.BACKBONE_ASSET)):
+                fail(f"quality: the transfer arms' backbone loads {loads}: the boot arm "
+                     f"alone must load from {boot_assets}")
+            donor_base = dump_krn_backbone.base_state_dict(
+                torch.load(donor, map_location="cpu", weights_only=True))
+            if len(boot_start) != 1:
+                fail(f"quality: the transfer A/B ran {len(boot_start)} boot arms, not 1")
+            start = {k[len("base."):]: v for k, v in boot_start[0].items()
+                     if k.startswith("base.")}
+            if start.keys() != donor_base.keys() or not all(
+                    torch.equal(start[k], donor_base[k]) for k in donor_base):
+                fail("quality: the boot arm's trunk at step 0 is not the donor's bit for bit")
+            print(f"phase quality: transfer chain dump_krn_backbone -> convert_weights -> "
+                  f"maybe_load_pretrained: the boot arm alone logged the load and starts "
+                  f"from the donor's {len(donor_base)} trunk tensors bit for bit; "
+                  f"{time.time() - t0:.1f} s", flush=True)
+
+            spn_cfg = default_cfg(model_name="spn", num_classes=SPN_CLASSES)
+            torch.manual_seed(41)
+            spn_sd = get_model(spn_cfg).state_dict()
+            torch.save(spn_sd, os.path.join(tmp, "spn.pt"))
+            spn_assets = os.path.join(tmp, "spn_assets")
+            dump_spn_convs.main([os.path.join(tmp, "spn.pt"),
+                                 os.path.join(spn_assets, "bvlc_alexnet.npy"),
+                                 "--mirror_assets"])
+            booted = get_model(spn_cfg)
+            if not maybe_load_pretrained(spn_cfg, booted, spn_assets):
+                fail("quality: maybe_load_pretrained did not load the dumped SPN convs")
+            convs = [k for k in spn_sd if k.startswith(tuple(f"conv{i}." for i in range(1, 6)))]
+            got = booted.state_dict()
+            if len(convs) != 10 or not all(torch.equal(got[k], spn_sd[k]) for k in convs):
+                fail("quality: SPN conv1-5 through dump_spn_convs differ from the checkpoint's")
+            print(f"phase quality: dump_spn_convs -> maybe_load_pretrained: SPN's {len(convs)} "
+                  "conv1-5 tensors bit for bit", flush=True)
+
+            rc = memo.wait(timeout=600)
+            with open(memo_out) as f:
+                memo_lines = f.read().splitlines()
+            if rc != 0:
+                fail(f"quality: the memorization run exited {rc}: {memo_lines[-20:]}")
+            print(memo_lines[-1], flush=True)
+            check_summary("convergence_run", json.loads(memo_lines[-1]))
+            curve = common.curve(os.path.join(memo_root, "log"))
+            speeds = [curve[e][common.VALID_TAGS[2]] for e in sorted(curve)]
+            if not min(speeds[1:]) < 0.5 * speeds[0]:
+                fail(f"quality: KRN memorization did not halve the SPEED score: {speeds}")
+            print(f"phase quality: KRN memorization at {S}^2 on 96 frames (train split), SPEED "
+                  f"{[round(v, 4) for v in speeds]} at epochs {sorted(curve)}: best "
+                  f"{min(speeds[1:]):.4f} < half the first {speeds[0]:.4f}", flush=True)
+        finally:
+            if memo.poll() is None:
+                os.killpg(memo.pid, signal.SIGKILL)
+                memo.wait()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with open(log) as f:
+            runs = [json.loads(x) for x in f]
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs) for k in _build.launches}
+    print(f"phase quality: {len(runs)} CLI processes, launches {launches}, "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_eval(logdir: str, what: str, phase: str, n_rows: int = EVAL_ROWS):
     """The four dumps of one evaluation: ``n_rows`` finite lines each.
     Returns meter name -> the rows."""
@@ -2126,6 +2355,7 @@ def main() -> None:
     launches["ddp"] = phase_ddp(dev)
     launches["ghiasi_phase"] = phase_ghiasi_phase(dev, load_ghiasi_params(os.path.join(
         default_assets_dir(), "ghiasi_params.msgpack")))
+    launches["quality"] = phase_quality(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2147,12 +2377,13 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the eight "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the nine "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "
           "CLI, which has none, 6 styled KRN steps from the RoI cache, the ddp ranks' styled "
           "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
-          "phase-space lowering), launches_by_path each; B1's bound_ms counts "
+          "phase-space lowering, the quality drivers' CLI processes, of which the style-aug "
+          "arm C restyles 4 steps), launches_by_path each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

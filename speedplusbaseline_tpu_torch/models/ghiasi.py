@@ -37,6 +37,7 @@ from ..ops.phase_conv import (conv3x3_s2_phase_aligned, conv9x9_phase, conv9x9_p
                               phase_weights_s2_aligned, phase_weights_up_aligned,
                               space_to_depth2, upconv3x3_phase_packed)
 from ..ops.resblock import ghiasi_resblock
+from .layers import flax_default_init_
 
 EMBED_DIM = 100
 
@@ -70,6 +71,7 @@ class ConvInRelu(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride)
+        flax_default_init_(self)
 
     def forward(self, x):
         y = _conv(self.conv, reflect_pad(x, self.conv.kernel_size[0] // 2))
@@ -88,6 +90,7 @@ class UpsampleConvInRelu(nn.Module):
         self.fc_gamma = nn.Linear(EMBED_DIM, features)
         self.fc_beta = nn.Linear(EMBED_DIM, features)
         self.conv = nn.Conv2d(in_ch, features, kernel_size)
+        flax_default_init_(self)
 
     def forward(self, x, style):
         gamma = self.fc_gamma(style)
@@ -113,6 +116,7 @@ class ResidualBlock(nn.Module):
         for i in ("1", "2"):
             setattr(self, f"fc_gamma{i}", nn.Linear(EMBED_DIM, features))
             setattr(self, f"fc_beta{i}", nn.Linear(EMBED_DIM, features))
+        flax_default_init_(self)
         self.register_buffer("w1_hwio", None, persistent=False)
         self.register_buffer("w2_hwio", None, persistent=False)
         self._refresh_hwio()
@@ -144,7 +148,8 @@ class Ghiasi(nn.Module):
     ``tpu_opt``), whose output layer emits the double-packed phase tensor
     (conv9x9_phase_dp), as the JAX module's default. The rewritten kernels
     are non-persistent buffers, made at init and remade after every
-    ``load_state_dict``, as ``ResidualBlock`` keeps B1's."""
+    ``load_state_dict``, as ``ResidualBlock`` keeps B1's. Untrained, each
+    layer's weights start as flax's defaults (``flax_default_init_``)."""
 
     def __init__(self, dtype: torch.dtype = torch.float32, phase_space: bool = False):
         super().__init__()

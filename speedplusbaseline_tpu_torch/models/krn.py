@@ -12,14 +12,14 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import ConvDw, RouterV2
+from .layers import ConvDw, RouterV2, flax_default_init_
 from .mobilenetv2 import MobileNetV2Features
 
 
 class KeypointRegressionNet(nn.Module):
     """``input_shape`` (H, W) fixes the head's kernel: the full (H/32, W/32)
     map, which is the reference's 7x7 at 224^2 (flax sizes it at trace
-    time)."""
+    time). The weights start as flax's defaults (``flax_default_init_``)."""
 
     def __init__(self, num_keypoints: int = 11,
                  input_shape: Sequence[int] = (224, 224)):
@@ -32,6 +32,7 @@ class KeypointRegressionNet(nn.Module):
         self.extra3 = ConvDw(4 * 64 + 1024, 1024)
         hk, wk = -(-input_shape[0] // 32), -(-input_shape[1] // 32)
         self.head = nn.Conv2d(1024, 2 * num_keypoints, (hk, wk))
+        flax_default_init_(self)
 
     def forward(self, x, return_features: bool = False):
         """(B, 3, H, W) images in [0, 1] -> (xc, yc), each (B, K) float32,

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .krn import KeypointRegressionNet
+from .layers import flax_default_init_
 
 
 class _GradReverse(torch.autograd.Function):
@@ -40,12 +41,14 @@ def grad_reverse(x: torch.Tensor, alpha: float) -> torch.Tensor:
 class DomainClassifier(nn.Module):
     """1x1 conv 320 -> 1280, ReLU, the mean over the whole map, 1x1 conv
     1280 -> 1: (B,) f32 logits. The mean is the reference's AvgPool2d(7) at
-    224^2 and stays a global mean at any other size, as in JAX."""
+    224^2 and stays a global mean at any other size, as in JAX. The weights
+    start as flax's defaults (``flax_default_init_``)."""
 
     def __init__(self):
         super().__init__()
         self.conv0 = nn.Conv2d(320, 1280, 1)
         self.conv1 = nn.Conv2d(1280, 1, 1)
+        flax_default_init_(self)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.conv0(feat.to(self.conv0.weight.dtype)))

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import LocalResponseNorm
+from .layers import LocalResponseNorm, flax_default_init_
 
 # (name, in, out, kernel, stride, padding, groups) of the trunk.
 _CONVS = (("conv1", 3, 96, 11, 4, 0, 1), ("conv2", 96, 256, 5, 1, 2, 2),
@@ -61,7 +61,8 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
 class SpacecraftPoseNet(nn.Module):
     """``keep_prob`` keeps the reference's name; it is torch Dropout's drop
     probability. ``input_shape`` (H, W) fixes fc6/fc9's input width (9216 at
-    227^2, as flax sizes it at trace time)."""
+    227^2, as flax sizes it at trace time). The weights start as flax's
+    defaults (``flax_default_init_``)."""
 
     def __init__(self, num_classes: int = 5000, keep_prob: float = 0.5,
                  input_shape: Sequence[int] = (227, 227)):
@@ -76,6 +77,7 @@ class SpacecraftPoseNet(nn.Module):
             self.add_module(a, nn.Linear(flat, 4096))
             self.add_module(b, nn.Linear(4096, 4096))
             self.add_module(c, nn.Linear(4096, num_classes))
+        flax_default_init_(self)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 rows: Optional[Tuple[int, int]] = None):

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm
+from .layers import BatchNorm, flax_default_init_
 
 EMBED_DIM = 100
 
@@ -116,7 +116,8 @@ class InceptionC(nn.Module):
 
 class StylePredictor(nn.Module):
     """(B, 3, H, W) images in [0, 1] -> (B, 100) f32 style embeddings. H and W
-    must be at least 43, the least input that leaves Mixed_6a a pixel."""
+    must be at least 43, the least input that leaves Mixed_6a a pixel. The
+    weights start as flax's defaults (``flax_default_init_``)."""
 
     def __init__(self):
         super().__init__()
@@ -138,6 +139,7 @@ class StylePredictor(nn.Module):
         self.Mixed_6d = InceptionC(768, 160)
         self.Mixed_6e = InceptionC(768, 192)
         self.fc = nn.Linear(768, EMBED_DIM)
+        flax_default_init_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = (x.float() - self.mean1) / self.std1

@@ -11,16 +11,21 @@ library as ``<name>.log``.
 ``load`` declares each library's C signatures once, from ``SIGNATURES``
 (every entry point returns a ``cudaError_t`` as int). ``launches`` counts
 kernel launches per wrapper; each wrapper adds one where it launches its
-kernel and nowhere else.
+kernel and nowhere else. When ``SPEEDPLUS_LAUNCH_LOG`` names a file, the
+process appends its counts there as one JSON line at exit, so that a caller
+can read the launches of a CLI it ran as a subprocess.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from typing import Dict
 
@@ -52,6 +57,17 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+LAUNCH_LOG_ENV = "SPEEDPLUS_LAUNCH_LOG"
+
+
+@atexit.register
+def _write_launch_log() -> None:
+    path = os.environ.get(LAUNCH_LOG_ENV)
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps({"argv": sys.argv, "launches": launches}) + "\n")
 
 
 def _nvcc() -> str:

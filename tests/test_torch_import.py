@@ -54,7 +54,11 @@ def test_port_imports_no_jax():
                             "models.revgrad", "adapt", "preprocess", "data.preprocess",
                             "data.synthetic", "models.weight_convert", "models.style_predictor",
                             "embedding", "convert_weights", "data.cache", "cache_dataset",
-                            "native.loader", "parallel.mesh", "ops.phase_conv")} <= mods
+                            "native.loader", "parallel.mesh", "ops.phase_conv",
+                            "quality.common", "quality.convergence_run",
+                            "quality.dann_adaptation_run", "quality.styleaug_ab_run",
+                            "quality.dump_krn_backbone", "quality.krn_transfer_run",
+                            "quality.dump_spn_convs")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):

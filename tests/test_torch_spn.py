@@ -76,6 +76,20 @@ def spn_pair(S, num_classes=NC, seed=0, keep_prob=0.5):
     return model, params
 
 
+def test_spn_init_matches_flax_defaults():
+    """The untrained SPN's weights follow flax's defaults, as the JAX model's
+    do (``test_torch_init.assert_init_matches_flax``). With torch's default init
+    (variance 1 / (3 fan_in), uniform biases) SPN Run S stayed at ln(500) on
+    the card for 80 epochs."""
+    from test_torch_init import assert_init_matches_flax
+
+    ref = JaxSPN(num_classes=NC).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 99, 99, 3)), train=False)["params"]
+    torch.manual_seed(0)
+    assert_init_matches_flax(ref, SpacecraftPoseNet(NC, input_shape=(99, 99)))
+
+
 @pytest.mark.parametrize("scale", [1.0, 300.0])
 def test_local_response_norm_matches_flax(scale):
     """At unit scale the denominator is ~1; at 300 the alpha * mean term is
