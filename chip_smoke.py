@@ -104,7 +104,20 @@ Phases, each printing its own lines:
                 SPEEDPLUS_LAUNCH_LOG), the transfer A/B with the boot arm's
                 trunk at step 0 equal to the donor's bit for bit, and SPN
                 conv1-5 through dump_spn_convs and maybe_load_pretrained bit
-                for bit; each driver's final JSON line.
+                for bit; each driver's final JSON line;
+ 16. toy_ghiasi -- the trainable generator and the toy-Ghiasi trainer
+                (``train_toy_ghiasi``): one MSE loss's gradients for every
+                parameter at the trainer's shape (batch 8, 64^2, f32) through
+                B1 / B2 and through their plain versions on the card, each
+                layer's relative L2 error and worst error over its largest
+                gradient; the
+                trainer CLI at its defaults (600 Adam steps) into a temporary
+                --out, its MSE every 50 steps, ms a step, its B1 / B2 launches
+                (at least 5 and 6 a step) and a final MSE of at most
+                TOY_MSE_MAX; the written file's keys and shapes against the
+                shipped asset's; tests/test_styleaug_quality.py's four
+                behaviour checks on the trained weights through the port's
+                StyleAugmentor on the card.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -211,6 +224,21 @@ LOADER_CONFIGS = tuple(c for c in (("full-frame cv2", False, False), ("native", 
                                    ("cache", True, False), ("cache + native", True, True))
                        if NATIVE_ON_CARD or not c[2])
 TOL_EVAL_CROP = 0.02
+# Phase toy_ghiasi: the kernel path's gradients against the plain path's on
+# the card, per layer (layerN): the relative L2 error of its gradients, and
+# the worst |difference| over its largest gradient. B1's split-bf16 forward
+# is a few 1e-6 (relative L2) off the plain block at this shape, and at the
+# trainer's start the gradients amplify an input change about 500x: the
+# phase prints the plain path on x * (1 + 1e-5 noise) beside the kernels
+# (3e-3 to 6e-3 relative L2, 2e-3 to 2.4e-2 worst over largest on an H100
+# 80GB HBM3 at 700 W), and B1 alone and B2 alone against plain; the kernels
+# read 7-9e-4 and 1e-3 to 6.5e-3 there, nearly all of it B1's. A wrong or
+# missing gradient is off by order 1. The trainer's final MSE: 1.5 x the JAX
+# script's 0.0076 (BASELINE.md:316). The behaviour checks' thresholds are
+# tests/test_styleaug_quality.py's.
+TOL_TOY_GRAD = {"relative L2": 5e-3, "worst / largest": 2e-2}
+TOY_MSE_MAX = 0.0114
+TOY_STEPS, TOY_B, TOY_S = 600, 8, 64
 # Device kernels of B1 and B2 by name, as a profiler trace holds them.
 B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
 
@@ -2176,6 +2204,170 @@ def phase_quality(dev):
     return launches
 
 
+class _PlainGhiasi:
+    """Within it, the generator calls the plain PyTorch version of B1 and / or
+    B2 in place of its wrapper, on the card too."""
+
+    def __init__(self, b1: bool = True, b2: bool = True):
+        self.b1, self.b2 = b1, b2
+
+    def __enter__(self):
+        from speedplusbaseline_tpu_torch.models import ghiasi
+        from speedplusbaseline_tpu_torch.ops import (ghiasi_resblock_plain,
+                                                     instance_norm_film_plain)
+
+        self.saved = ghiasi.ghiasi_resblock, ghiasi.instance_norm_film
+        if self.b1:
+            ghiasi.ghiasi_resblock = ghiasi_resblock_plain
+        if self.b2:
+            ghiasi.instance_norm_film = instance_norm_film_plain
+
+    def __exit__(self, *exc):
+        from speedplusbaseline_tpu_torch.models import ghiasi
+
+        ghiasi.ghiasi_resblock, ghiasi.instance_norm_film = self.saved
+
+
+def asset_content(dev):
+    """tests/test_styleaug_quality.py's 64^2 content (2 images), NCHW on ``dev``."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(3)
+    xy = np.stack(np.meshgrid(np.arange(64), np.arange(64)), -1) / 64.0
+    img = 0.5 + 0.35 * np.sin(2 * np.pi * (xy @ np.array([[5.0], [2.0]])))
+    img = np.repeat(img[None, :, :, :], 3, axis=-1) + 0.05 * rs.randn(2, 64, 64, 3)
+    return torch.from_numpy(np.clip(img, 0, 1).astype(np.float32)).permute(0, 3, 1, 2).to(dev)
+
+
+def phase_toy_ghiasi(dev, card: str):
+    """The trainable generator and the toy trainer on the card (see the module
+    docstring, phase 16). Returns the trainer's launches."""
+    import torch
+
+    from speedplusbaseline_tpu_torch import train_toy_ghiasi as toy
+    from speedplusbaseline_tpu_torch.augment.styleaug import (StyleAugmentor,
+                                                              load_ghiasi_params,
+                                                              load_style_stats,
+                                                              random_style_stats)
+    from speedplusbaseline_tpu_torch.convert import read_flax_msgpack
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+    from speedplusbaseline_tpu_torch.ops import _build
+
+    t_phase = time.time()
+    try:
+        stats = load_style_stats(default_assets_dir())
+    except FileNotFoundError:
+        stats = random_style_stats(0)
+    A, mean = (torch.as_tensor(a, device=dev) for a in stats[:2])
+    draws = toy.draw_batch(torch.Generator(dev).manual_seed(5), TOY_B, TOY_S)
+    x = toy.make_batch(draws)
+    emb = toy.embed(draws["z"], A, mean)
+    target = toy.style_targets(x, emb)
+    torch.manual_seed(0)
+    net = Ghiasi().to(dev)
+    params = dict(net.named_parameters())
+    noise = torch.randn(x.shape, device=dev, generator=torch.Generator(dev).manual_seed(9))
+    # path: (plain B1, plain B2, input); the last three only show where a
+    # difference comes from and how far the gradients amplify an input change.
+    paths = {"kernels": (False, False, x), "plain": (True, True, x),
+             "B1 alone": (False, True, x), "B2 alone": (True, False, x),
+             "plain on x * (1 + 1e-5 noise)": (True, True, x * (1 + 1e-5 * noise))}
+    grads = {}
+    for path, (b1, b2, inp) in paths.items():
+        before = dict(_build.launches)
+        with _PlainGhiasi(b1, b2):
+            loss = toy.mse_loss(net, inp, emb, target)
+        launched = {k: _build.launches[k] - before[k] for k in before}
+        grads[path] = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                           allow_unused=True)))
+        expected = {"ghiasi_resblock": 5 * (not b1), "instance_norm_film": 6 * (not b2)}
+        if launched != expected:
+            fail(f"toy_ghiasi: the {path} path's forward launched {launched}, not {expected}")
+        if path in ("kernels", "plain"):
+            print(f"phase toy_ghiasi: {path} path, loss {loss.item():.6f}, forward launches "
+                  f"{launched}", flush=True)
+    missing = [n for n, g in grads["kernels"].items() if g is None]
+    if missing:
+        fail(f"toy_ghiasi: no gradient reached {missing}")
+    layers = list(dict.fromkeys(n.split(".")[0] for n in params))
+    for path in paths:
+        if path == "plain":
+            continue
+        errors = {metric: {} for metric in TOL_TOY_GRAD}
+        for layer in layers:
+            names = [n for n in params if n.split(".")[0] == layer]
+            got, ref = (torch.cat([grads[p][n].flatten() for n in names])
+                        for p in (path, "plain"))
+            if not torch.isfinite(got).all():
+                fail(f"toy_ghiasi: a gradient of {layer} is not finite on the {path} path")
+            errors["relative L2"][layer] = ((got - ref).norm() / ref.norm()).item()
+            errors["worst / largest"][layer] = ((got - ref).abs().max()
+                                                / ref.abs().max()).item()
+        for metric, tol in TOL_TOY_GRAD.items():
+            bound = f" (tol {tol:g})" if path == "kernels" else ""
+            print(f"phase toy_ghiasi: gradients of {len(params)} parameters at ({TOY_B}, 3, "
+                  f"{TOY_S}, {TOY_S}) f32 on the card, {path} vs plain, {metric} by layer"
+                  f"{bound}: " + ", ".join(f"{k} {v:.2e}" for k, v in errors[metric].items()),
+                  flush=True)
+            if path == "kernels" and not max(errors[metric].values()) <= tol:
+                fail(f"toy_ghiasi: kernel gradients differ from plain ones by "
+                     f"{max(errors[metric].values()):.3e} ({metric})")
+    del net, params, grads
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ghiasi_params.msgpack")
+        _build.reset_launches()
+        t0 = time.time()
+        result = toy.main(["--out", out])
+        wall = time.time() - t0
+        launches = dict(_build.launches)
+        ms = result["train_s"] * 1e3 / TOY_STEPS
+        print(f"phase toy_ghiasi: train_toy_ghiasi at its defaults ({TOY_STEPS} Adam steps, "
+              f"batch {TOY_B}, {TOY_S}^2, f32) on {card}: final MSE {result['final_mse']:.5f} "
+              f"(limit {TOY_MSE_MAX}), MSE by step {result['mse']}, {ms:.2f} ms a step, "
+              f"wall {wall:.1f} s, launches {launches}", flush=True)
+        if not result["final_mse"] <= TOY_MSE_MAX:
+            fail(f"toy_ghiasi: final MSE {result['final_mse']} above {TOY_MSE_MAX}")
+        if (launches["ghiasi_resblock"] < 5 * TOY_STEPS
+                or launches["instance_norm_film"] < 6 * TOY_STEPS):
+            fail(f"toy_ghiasi: launches {launches}, fewer than 5 B1 and 6 B2 a step")
+
+        def shapes(tree):
+            if isinstance(tree, dict):
+                return {k: shapes(v) for k, v in tree.items()}
+            return tree.shape, str(tree.dtype)
+
+        shipped = os.path.join(default_assets_dir(), "ghiasi_params.msgpack")
+        if shapes(read_flax_msgpack(out)) != shapes(read_flax_msgpack(shipped)):
+            fail("toy_ghiasi: the written file's keys or shapes differ from the shipped asset's")
+        aug = StyleAugmentor(alpha=0.5, stats=stats, device=dev)
+        aug.ghiasi.load_state_dict(load_ghiasi_params(out))
+
+    content = asset_content(dev)
+
+    def restyle(seed):
+        return aug(content, torch.Generator(dev).manual_seed(seed)).float()
+
+    a, b = restyle(1), restyle(2)
+    c0, x0 = a[0].flatten().double(), content[0].flatten().double()
+    c0, x0 = c0 - c0.mean(), x0 - x0.mean()
+    checks = {"content kept (corr > 0.5)": float(c0 @ x0 / (c0.norm() * x0.norm() + 1e-9)),
+              "embedding conditioned (mean |a-b| > 0.01)": float((a - b).abs().mean()),
+              "deterministic per generator seed": torch.equal(restyle(7), restyle(7)),
+              "changes the image (> 0.01)": float((a - content).abs().mean())}
+    print(f"phase toy_ghiasi: the trained weights through StyleAugmentor on the card: "
+          f"{checks}", flush=True)
+    if not (torch.isfinite(a).all() and a.shape == content.shape):
+        fail("toy_ghiasi: the restyle is not finite or not of the content's shape")
+    values = list(checks.values())
+    if not (values[0] > 0.5 and values[1] > 0.01 and values[2] and values[3] > 0.01):
+        fail(f"toy_ghiasi: a behaviour check failed: {checks}")
+    print(f"phase toy_ghiasi: {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_eval(logdir: str, what: str, phase: str, n_rows: int = EVAL_ROWS):
     """The four dumps of one evaluation: ``n_rows`` finite lines each.
     Returns meter name -> the rows."""
@@ -2356,6 +2548,7 @@ def main() -> None:
     launches["ghiasi_phase"] = phase_ghiasi_phase(dev, load_ghiasi_params(os.path.join(
         default_assets_dir(), "ghiasi_params.msgpack")))
     launches["quality"] = phase_quality(dev)
+    launches["toy_ghiasi"] = phase_toy_ghiasi(dev, card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2383,7 +2576,8 @@ def main() -> None:
           "CLI, which has none, 6 styled KRN steps from the RoI cache, the ddp ranks' styled "
           "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
           "phase-space lowering, the quality drivers' CLI processes, of which the style-aug "
-          "arm C restyles 4 steps), launches_by_path each; B1's bound_ms counts "
+          "arm C restyles 4 steps, the toy-Ghiasi trainer's 600 steps), launches_by_path "
+          "each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))
     print(card)

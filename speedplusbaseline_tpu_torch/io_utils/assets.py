@@ -30,13 +30,26 @@ def _resolve(path: str, native_name: str) -> str:
     raise FileNotFoundError(f"asset not found: {path} (no fallback {native})")
 
 
+def read_tango_mat(path: str) -> np.ndarray:
+    """The reference's ``tangoPoints.mat``: (3, 11) ``tango3Dpoints`` as an
+    (11, 3) float32 view (its transpose, not a copy)."""
+    from scipy.io import loadmat
+
+    return np.asarray(loadmat(path)["tango3Dpoints"], dtype=np.float32).T
+
+
+def read_attitude_mat(path: str) -> np.ndarray:
+    """The reference's ``attitudeClasses.mat``: ``qClass`` as float32."""
+    from scipy.io import loadmat
+
+    return np.asarray(loadmat(path)["qClass"], dtype=np.float32)
+
+
 def load_tango_3d_keypoints(path: str = "") -> np.ndarray:
     """(11, 3) float32 Tango keypoints (utils.py:273-277)."""
     path = _resolve(path, "tango_points.npy")
     if path.endswith(".mat"):
-        from scipy.io import loadmat
-
-        return np.asarray(loadmat(path)["tango3Dpoints"], dtype=np.float32).T
+        return read_tango_mat(path)
     return np.load(path).astype(np.float32)
 
 
@@ -44,9 +57,7 @@ def load_attitude_classes(path: str = "") -> np.ndarray:
     """(num_classes, 4) scalar-first unit quaternion bins (train.py:119)."""
     path = _resolve(path, "attitude_classes.npy")
     if path.endswith(".mat"):
-        from scipy.io import loadmat
-
-        return np.asarray(loadmat(path)["qClass"], dtype=np.float32)
+        return read_attitude_mat(path)
     return np.load(path).astype(np.float32)
 
 

@@ -14,7 +14,18 @@ XLA.
 ``dtype`` is the compute dtype, as the flax module's: the input and the conv
 weights are cast to it, FiLM stays f32, and the output is the sigmoid cast to
 ``dtype``. Tensors are NCHW in channels_last memory; the kernels see the
-(B, H, W, C) view of the same storage.
+(B, H, W, C) view of the same storage. A float64 module in the plain
+lowering (the CPU tests' float64 steps) computes FiLM, the norms and the
+blocks in float64.
+
+The generator is trainable. Both kernels are differentiable (their backward
+is the VJP of their plain version, ``ops/_vjp.py``). B1 and the phase-space
+convs take rewritten conv weights (HWIO, phase kernels): when the conv
+weights require grad under grad mode, the forward rewrites them from the
+live weights on every call, so that the gradient reaches them; otherwise it
+reads the rewritten copies cached in non-persistent buffers, remade after
+every ``load_state_dict``, as a frozen generator (the style augmentor's)
+needs no rewrite per call.
 
 ``Ghiasi(phase_space=True)`` is the JAX module's ``tpu_opt``: the
 full-resolution layers run as the phase-space rewrites of
@@ -30,7 +41,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.instancenorm import instance_norm_film
+from ..ops._vjp import needs_grad
+from ..ops.instancenorm import compute_dtype, instance_norm_film
 from ..ops.phase_conv import (conv3x3_s2_phase_aligned, conv9x9_phase, conv9x9_phase_dp,
                               depth_to_space2, phase_instance_norm_packed,
                               phase_weights_9x9, phase_weights_9x9_dp,
@@ -58,6 +70,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """The conv's weight as HWIO in f32 (float64 for a float64 weight)."""
+    return conv.weight.permute(2, 3, 1, 0).to(compute_dtype(conv.weight.dtype))
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -105,9 +122,10 @@ class ResidualBlock(nn.Module):
     """Residual block with two FiLM-conditioned 3x3 convs (ghiasi.py:65-103),
     computed in f32 and returned in x's dtype, as the fused TPU kernel does.
 
-    The kernel takes HWIO f32 conv weights. The block is frozen, so it holds
-    them as non-persistent buffers, made at init and remade after every
-    ``load_state_dict``, rather than permuting both weights on every call."""
+    The kernel takes HWIO f32 conv weights. A frozen block reads them from
+    non-persistent buffers, made at init and remade after every
+    ``load_state_dict``; a block whose conv weights require grad under grad
+    mode permutes the live weights on every call instead."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -125,20 +143,19 @@ class ResidualBlock(nn.Module):
 
     @torch.no_grad()
     def _refresh_hwio(self) -> None:
-        for name, conv in (("w1_hwio", self.conv1), ("w2_hwio", self.conv2)):
-            setattr(self, name, conv.weight.permute(2, 3, 1, 0).float().contiguous())
+        self.w1_hwio = _hwio(self.conv1).contiguous()
+        self.w2_hwio = _hwio(self.conv2).contiguous()
 
     def forward(self, x, style):
+        w1, w2 = self.w1_hwio, self.w2_hwio
+        if needs_grad((self.conv1.weight, self.conv2.weight)):
+            w1, w2 = _hwio(self.conv1).contiguous(), _hwio(self.conv2).contiguous()
+        b1, b2 = (c.bias.to(compute_dtype(c.bias.dtype)) for c in (self.conv1, self.conv2))
         out = ghiasi_resblock(
-            _nhwc(x), self.w1_hwio, self.conv1.bias.float(),
-            self.w2_hwio, self.conv2.bias.float(),
+            _nhwc(x), w1, b1, w2, b2,
             self.fc_gamma1(style), self.fc_beta1(style),
             self.fc_gamma2(style), self.fc_beta2(style))
         return _nchw(out)
-
-
-def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    return conv.weight.permute(2, 3, 1, 0).float()
 
 
 class Ghiasi(nn.Module):
@@ -148,8 +165,13 @@ class Ghiasi(nn.Module):
     ``tpu_opt``), whose output layer emits the double-packed phase tensor
     (conv9x9_phase_dp), as the JAX module's default. The rewritten kernels
     are non-persistent buffers, made at init and remade after every
-    ``load_state_dict``, as ``ResidualBlock`` keeps B1's. Untrained, each
-    layer's weights start as flax's defaults (``flax_default_init_``)."""
+    ``load_state_dict``, as ``ResidualBlock`` keeps B1's, and rewritten from
+    the live weights on every call when those require grad under grad mode.
+    Untrained, each layer's weights start as flax's defaults
+    (``flax_default_init_``)."""
+
+    # The layers whose convs the phase-space lowering rewrites.
+    _PHASE_LAYERS = (0, 1, 2, 8, 9, 10)
 
     def __init__(self, dtype: torch.dtype = torch.float32, phase_space: bool = False):
         super().__init__()
@@ -164,21 +186,25 @@ class Ghiasi(nn.Module):
         self.layer9 = UpsampleConvInRelu(64, 32, 3, upsample=2)
         self.layer10 = UpsampleConvInRelu(32, 3, 9, use_relu=False)
         if phase_space:
-            for layer in (0, 1, 2, 8, 9, 10):
+            for layer in self._PHASE_LAYERS:
                 self.register_buffer(f"phase_w{layer}", None, persistent=False)
             self._refresh_phase()
             self.register_load_state_dict_post_hook(
                 lambda module, _incompatible: module._refresh_phase())
 
+    def _phase_kernels(self):
+        """The phase-space kernels (HWIO, f32) of the current conv weights,
+        layers 0, 1, 2, 8, 9, 10."""
+        rewrite = {0: phase_weights_9x9, 1: phase_weights_s2_aligned,
+                   2: phase_weights_s2_aligned, 8: phase_weights_up_aligned,
+                   9: phase_weights_up_aligned, 10: phase_weights_9x9_dp}
+        return tuple(rewrite[i](_hwio(getattr(self, f"layer{i}").conv))
+                     for i in self._PHASE_LAYERS)
+
     @torch.no_grad()
     def _refresh_phase(self) -> None:
-        """The phase-space kernels (HWIO, f32) of the current conv weights."""
-        self.phase_w0 = phase_weights_9x9(_hwio(self.layer0.conv))
-        self.phase_w1 = phase_weights_s2_aligned(_hwio(self.layer1.conv))
-        self.phase_w2 = phase_weights_s2_aligned(_hwio(self.layer2.conv))
-        self.phase_w8 = phase_weights_up_aligned(_hwio(self.layer8.conv))
-        self.phase_w9 = phase_weights_up_aligned(_hwio(self.layer9.conv))
-        self.phase_w10 = phase_weights_9x9_dp(_hwio(self.layer10.conv))
+        for i, w in zip(self._PHASE_LAYERS, self._phase_kernels()):
+            setattr(self, f"phase_w{i}", w)
 
     def forward(self, x, styles):
         """x: (B, 3, H, W) in [0, 1]; styles: (B, 100). Returns
@@ -189,7 +215,7 @@ class Ghiasi(nn.Module):
         as the flax module sets them."""
         with torch.autocast(x.device.type, enabled=False):
             x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-            styles = styles.float()
+            styles = styles.to(compute_dtype(self.dtype))
             if self.phase_space:
                 return self._phase_forward(x, styles)
             x = self.layer2(self.layer1(self.layer0(x)))
@@ -198,7 +224,7 @@ class Ghiasi(nn.Module):
             x = self.layer8(x, styles)
             x = self.layer9(x, styles)
             x = self.layer10(x, styles)
-            return torch.sigmoid(x.float()).to(self.dtype)
+            return torch.sigmoid(x.to(compute_dtype(x.dtype))).to(self.dtype)
 
     def _phase_forward(self, x: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
         """The JAX module's ``_phase_forward``, layer for layer. A side that
@@ -209,34 +235,38 @@ class Ghiasi(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         x = _nhwc(x)
+        convs = [getattr(self, f"layer{i}").conv.weight for i in self._PHASE_LAYERS]
+        w0, w1, w2, w8, w9, w10 = (self._phase_kernels() if needs_grad(convs) else
+                                   [getattr(self, f"phase_w{i}") for i in self._PHASE_LAYERS])
 
         # layer0: 9x9 3 -> 32 as a 5x5 conv on the phases: (B, H/2, W/2, 4*32)
         a = conv9x9_phase(space_to_depth2(x), None, self.layer0.conv.bias,
-                          phase_w=self.phase_w0)
+                          phase_w=w0)
         a = F.relu(phase_instance_norm_packed(a)).to(self.dtype)
         # layer1: 3x3 s2 32 -> 64; its s2d input is layer0's phase output
-        y = conv3x3_s2_phase_aligned(a, None, self.layer1.conv.bias, phase_w=self.phase_w1)
+        y = conv3x3_s2_phase_aligned(a, None, self.layer1.conv.bias, phase_w=w1)
         y = instance_norm_film(y.contiguous(), relu=True)
         # layer2: 3x3 s2 64 -> 128
         y = conv3x3_s2_phase_aligned(space_to_depth2(y), None, self.layer2.conv.bias,
-                                     phase_w=self.phase_w2)
+                                     phase_w=w2)
         y = _nchw(instance_norm_film(y.contiguous(), relu=True))
         for i in range(5):
             y = getattr(self, f"layer{3 + i}")(y, styles)
 
         # layer8: up2 + 3x3 128 -> 64 as one subpixel conv (packed phases)
         l8 = self.layer8
-        z = upconv3x3_phase_packed(_nhwc(y), None, l8.conv.bias, phase_w=self.phase_w8)
+        z = upconv3x3_phase_packed(_nhwc(y), None, l8.conv.bias, phase_w=w8)
         z = F.relu(phase_instance_norm_packed(z, l8.fc_gamma(styles), l8.fc_beta(styles)))
         y = depth_to_space2(z).to(self.dtype)
         # layer9: up2 + 3x3 64 -> 32; its packed output is layer10's s2d input
         l9 = self.layer9
-        z = upconv3x3_phase_packed(y, None, l9.conv.bias, phase_w=self.phase_w9)
+        z = upconv3x3_phase_packed(y, None, l9.conv.bias, phase_w=w9)
         a = F.relu(phase_instance_norm_packed(z, l9.fc_gamma(styles),
                                               l9.fc_beta(styles))).to(self.dtype)
         # layer10: 9x9 32 -> 3 + IN + FiLM, no ReLU. The padded input makes
         # a's sides even, which the double-packed form needs.
         l10 = self.layer10
-        z = conv9x9_phase_dp(a, None, l10.conv.bias, phase_w=self.phase_w10)
+        z = conv9x9_phase_dp(a, None, l10.conv.bias, phase_w=w10)
         z = phase_instance_norm_packed(z, l10.fc_gamma(styles), l10.fc_beta(styles), phases=16)
-        return _nchw(depth_to_space2(depth_to_space2(torch.sigmoid(z.float()).to(self.dtype))))
+        z = torch.sigmoid(z.to(compute_dtype(z.dtype))).to(self.dtype)
+        return _nchw(depth_to_space2(depth_to_space2(z)))

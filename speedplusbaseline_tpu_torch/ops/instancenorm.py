@@ -9,7 +9,10 @@ version) and ``ops/pallas_instancenorm.py`` (the TPU kernel, which
 * ``plan``: which of the kernel's two paths a shape takes, and how it is cut.
   The wrapper follows it and nothing else.
 * ``instance_norm_film``: the wrapper. A CPU tensor takes the plain version;
-  a CUDA tensor launches the planned path or raises.
+  a CUDA tensor launches the planned path or raises. It is differentiable:
+  under grad mode, when x, gamma or beta requires grad, the call goes
+  through ``_vjp.PlainVJP`` (forward: the same call; backward: the VJP of
+  the plain version, recomputed), on either path.
 
 Layout is the JAX functions' (B, H, W, C), contiguous: a channels_last NCHW
 tensor ``.permute(0, 2, 3, 1)`` is exactly that, with no copy. torch
@@ -25,6 +28,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import _build
+from ._vjp import PlainVJP, needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
@@ -66,18 +70,24 @@ class Plan:
     nchunks: int = 0
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: f32, or float64 for float64 input
+    (the CPU tests' float64 steps; the kernels take f32 and bf16 only)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def instance_norm_film_plain(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                              beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
                              relu: bool = False) -> torch.Tensor:
     """x: (B, H, W, C); gamma/beta: (B, C) or None. Same shape/dtype as x."""
-    xf = x.float()
+    xf = x.to(compute_dtype(x.dtype))
     mean = xf.mean(dim=(1, 2), keepdim=True)
     var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if gamma is not None:
-        y = y * gamma[:, None, None, :].float()
+        y = y * gamma[:, None, None, :].to(xf.dtype)
     if beta is not None:
-        y = y + beta[:, None, None, :].float()
+        y = y + beta[:, None, None, :].to(xf.dtype)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -187,6 +197,15 @@ def instance_norm_film(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
 
     x: (B, H, W, C) float32 or bfloat16; gamma, beta: (B, C) float32 or None.
     """
+    if needs_grad((x, gamma, beta)):
+        return PlainVJP.apply(_instance_norm_film, instance_norm_film_plain,
+                              {"eps": eps, "relu": relu}, x, gamma, beta)
+    return _instance_norm_film(x, gamma, beta, eps, relu)
+
+
+def _instance_norm_film(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                        beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
+                        relu: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return instance_norm_film_plain(x, gamma, beta, eps, relu)
     check_x(x, "instance_norm_film")

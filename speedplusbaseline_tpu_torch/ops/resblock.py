@@ -14,7 +14,14 @@ computed in f32 from x's dtype and cast back, as the Pallas kernel does.
   instance norm, all f32. The CPU tests use it; ``chip_smoke.py`` holds the
   kernel to it.
 * ``ghiasi_resblock``: the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches the kernel chain or raises.
+  CUDA tensor launches the kernel chain or raises. Under grad mode, when an
+  argument requires grad, the call goes through ``_vjp.PlainVJP``, an
+  autograd Function whose forward is that same call and whose backward is
+  the VJP of ``ghiasi_resblock_plain``, recomputed from the saved inputs
+  (the JAX package has no backward kernel either: its Pallas kernel serves
+  the frozen generator, and training differentiates the XLA block). Without
+  grad mode, or with no argument that requires grad, the wrapper calls the
+  kernel directly, with no autograd bookkeeping.
 
 The kernel runs both convs on the Hopper tensor cores (``wgmma``) at f32
 accuracy through split-bf16 operands: each f32 operand v becomes
@@ -48,20 +55,23 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .instancenorm import _DTYPES, check_f32, check_x, instance_norm_film_plain
+from ._vjp import PlainVJP, needs_grad
+from .instancenorm import (_DTYPES, check_f32, check_x, compute_dtype,
+                           instance_norm_film_plain)
 
 
 def _conv3x3_reflect(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     x = F.pad(x_nhwc.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-    y = F.conv2d(x, w_hwio.permute(3, 2, 0, 1).float(), b.float())
+    y = F.conv2d(x, w_hwio.permute(3, 2, 0, 1).to(x.dtype), b.to(x.dtype))
     return y.permute(0, 2, 3, 1)
 
 
 def ghiasi_resblock_plain(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2):
     """x: (B, H, W, C); w1/w2: (3, 3, C, C) HWIO; b1/b2: (C,);
-    gamma/beta: (B, C). Returns (B, H, W, C) in x's dtype."""
-    xf = x.float()
+    gamma/beta: (B, C). Returns (B, H, W, C) in x's dtype, computed in f32
+    (float64 for a float64 x)."""
+    xf = x.to(compute_dtype(x.dtype))
     y = _conv3x3_reflect(xf, w1, b1)
     y = instance_norm_film_plain(y, gamma1, beta1, relu=True)
     y = _conv3x3_reflect(y, w2, b2)
@@ -84,7 +94,15 @@ def _geometry(lib, H: int, W: int, C: int):
 def ghiasi_resblock(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2):
     """Fused residual block (see module docstring); same arguments as
     ``ghiasi_resblock_plain``. On CUDA every argument but x must be a
-    contiguous float32 tensor; x is float32 or bfloat16, contiguous."""
+    contiguous float32 tensor; x is float32 or bfloat16, contiguous.
+    Differentiable in every argument (``PlainVJP``)."""
+    args = (x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2)
+    if needs_grad(args):
+        return PlainVJP.apply(_ghiasi_resblock, ghiasi_resblock_plain, {}, *args)
+    return _ghiasi_resblock(*args)
+
+
+def _ghiasi_resblock(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2):
     if x.device.type == "cpu":
         return ghiasi_resblock_plain(x, w1, b1, w2, b2, gamma1, beta1, gamma2, beta2)
     check_x(x, "ghiasi_resblock")

@@ -11,9 +11,12 @@ module imports no JAX. Tolerances: f32 1e-4 (B2) and 5e-4 + 1e-4 |ref| (B1,
 differently). EPnP: card against CPU f32 on 1-px-noisy keypoints, q within
 1e-4 after sign alignment and t within 1e-3 m (the two refinements stop at
 one minimum, f32 rounding apart), with no host sync in the call, and its
-CUDA graph replay equal to the eager call; SPN's pose the same way. Then
-the phase-space Ghiasi against the plain one on the card, and two
-data-parallel ranks over gloo on one card against one process.
+CUDA graph replay equal to the eager call; SPN's pose the same way. Under
+grad, B1 and B2 still run the forward and the gradients are their plain
+versions' VJPs (f32 within 1e-5, the same recomputation on the same inputs;
+a bf16 input's gradient within the bf16 tolerance). Then the phase-space
+Ghiasi against the plain one on the card, and two data-parallel ranks over
+gloo on one card against one process.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from speedplusbaseline_tpu_torch.ops.resblock import ghiasi_resblock, ghiasi_res
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}
+TOL_GRAD = {torch.float32: (1e-5, 1e-5), torch.bfloat16: TOL[torch.bfloat16]}
 
 
 @pytest.fixture
@@ -118,6 +122,47 @@ def test_resblock_kernel(dev, dtype, shape):
     before = _build.launches["ghiasi_resblock"]
     _check(ghiasi_resblock(x, *args), ghiasi_resblock_plain(x, *args), tol)
     assert _build.launches["ghiasi_resblock"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,film", [((2, 8, 8, 32), True), ((2, 8, 8, 32), False),
+                                        ((3, 9, 7, 3), True), ((3, 9, 7, 3), False)])
+def test_instance_norm_film_gradient_on_card(dev, dtype, shape, film):
+    """Under grad, the kernel still runs the forward (on both plan() paths,
+    with and without FiLM) and the gradients are the plain version's VJP."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(shape, device=dev, generator=g) + 2.0).to(dtype).requires_grad_()
+    gb = [torch.randn(shape[0], shape[3], device=dev, generator=g).requires_grad_() if film
+          else None for _ in range(2)]
+    before = _build.launches["instance_norm_film"]
+    out = instance_norm_film(x, *gb, relu=True)
+    assert _build.launches["instance_norm_film"] == before + 1 and out.grad_fn is not None
+    _check(out, instance_norm_film_plain(x, *gb, relu=True), TOL[dtype])
+    cot = torch.randn(out.shape, device=dev, generator=g).to(dtype)
+    wrt = [x] + [t for t in gb if t is not None]
+    got = torch.autograd.grad(out, wrt, cot)
+    ref = torch.autograd.grad(instance_norm_film_plain(x, *gb, relu=True), wrt, cot)
+    for a, r in zip(got, ref):
+        _check(a, r, TOL_GRAD[a.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resblock_gradient_on_card(dev, dtype):
+    """Under grad, B1 still runs the forward and every argument's gradient is
+    the plain block's VJP, recomputed from the same inputs."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W, C = 2, 8, 8, 128
+    shapes = [(B, H, W, C), (3, 3, C, C), (C,), (3, 3, C, C), (C,)] + [(B, C)] * 4
+    args = [(torch.randn(s, device=dev, generator=g) * 0.1).requires_grad_() for s in shapes]
+    args[0] = args[0].detach().to(dtype).requires_grad_()
+    before = _build.launches["ghiasi_resblock"]
+    out = ghiasi_resblock(*args)
+    assert _build.launches["ghiasi_resblock"] == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, device=dev, generator=g).to(dtype)
+    got = torch.autograd.grad(out, args, cot)
+    ref = torch.autograd.grad(ghiasi_resblock_plain(*args), args, cot)
+    for a, r in zip(got, ref):
+        _check(a, r, TOL_GRAD[a.dtype])
 
 
 @pytest.mark.parametrize("shape,match", [((1, 4, 400, 128), "shared memory"),

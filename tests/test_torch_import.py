@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
                             "quality.common", "quality.convergence_run",
                             "quality.dann_adaptation_run", "quality.styleaug_ab_run",
                             "quality.dump_krn_backbone", "quality.krn_transfer_run",
-                            "quality.dump_spn_convs")} <= mods
+                            "quality.dump_spn_convs", "train_toy_ghiasi", "convert_assets",
+                            "ops._vjp")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
@@ -123,6 +124,20 @@ def test_embedding_and_convert_clis_raise_without_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--no_cuda"):
         convert_weights.main(args)
     assert convert_weights.main(args + ["--no_cuda"]) == str(tmp_path / "g.msgpack")
+
+
+def test_toy_ghiasi_cli_raises_without_gpu(monkeypatch, tmp_path):
+    """The toy trainer runs on the card unless given --no_cuda; with it, a
+    few steps on the CPU write the file (never the default --out)."""
+    from speedplusbaseline_tpu_torch import train_toy_ghiasi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--steps", "2", "--batch", "1", "--size", "16", "--out", str(tmp_path / "g.msgpack")]
+    with pytest.raises(RuntimeError, match="--no_cuda"):
+        train_toy_ghiasi.main(args)
+    assert not (tmp_path / "g.msgpack").exists()
+    assert train_toy_ghiasi.main(args + ["--no_cuda"])["out"] == str(tmp_path / "g.msgpack")
+    assert (tmp_path / "g.msgpack").stat().st_size > 1_000_000
 
 
 def test_unknown_model_name_raises(tmp_path):
