@@ -117,7 +117,13 @@ Phases, each printing its own lines:
                 TOY_MSE_MAX; the written file's keys and shapes against the
                 shipped asset's; tests/test_styleaug_quality.py's four
                 behaviour checks on the trained weights through the port's
-                StyleAugmentor on the card.
+                StyleAugmentor on the card;
+ 17. spn_stall -- the SPN memorization probe (``quality.probe_spn_memorize``)
+                on one batch of 48 crops at 227^2 against 500 attitude bins
+                for 200 steps at a held lr, whose loss_c must fall under
+                2.5; the live-ReLU shares of two seeds at steps 0 and 64
+                (``quality.spn_seed_sweep.live_run``), printed; B1 and B2
+                launch 0 times.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -2368,6 +2374,76 @@ def phase_toy_ghiasi(dev, card: str):
     return launches
 
 
+# Phase spn_stall: the memorization probe on one fixed batch (SPN at 227^2,
+# 500 classes, batch 48, AdamW lr 1e-3 wd 0.01 held, dropout on, clip by
+# value) must bring loss_c under STALL_PROBE_MAX within STALL_PROBE_STEPS
+# steps: JAX's probe reaches the n-hot entropy floor ln 5 = 1.61 in under
+# 100 steps at 5000 classes (BASELINE.md:355). Then the live-ReLU shares of
+# STALL_LIVE_SEEDS at STALL_LIVE_STEPS, printed, and Run S's stall rate of
+# PERF.md §6, printed (the rate is a training-quality record, not a check).
+STALL_PROBE_STEPS, STALL_PROBE_MAX, STALL_FRAMES = 200, 2.5, 96
+STALL_LIVE_SEEDS, STALL_LIVE_STEPS = (2, 1), (0, 64)
+# Run S's stall rate over its first 4 epochs (quality.spn_seed_sweep and
+# tests/jax_spn_stall.py; PERF.md §6).
+SPN_STALL_RATE = ("the port 4 of 12 seeds (2021, 0-10; 5 of 16 with 11-14) on an NVIDIA H100 "
+                  "80GB HBM3 at 700 W, JAX 3 of 6 (2021, 0-4) on a CPU; Fisher exact p 0.627")
+
+
+def phase_spn_stall(dev):
+    """The port's SPN memorization probe (``quality.probe_spn_memorize``)
+    on one batch of 48 crops of a 96-frame 320x200 root labelled against
+    500 attitude bins, and the live-ReLU shares (``quality.spn_seed_sweep``)
+    of two seeds trained as the train CLI does on that root, the lr held.
+    This path restyles nothing: B1 and B2 must launch 0 times. Returns the
+    launches."""
+    from speedplusbaseline_tpu_torch.ops import _build
+    from speedplusbaseline_tpu_torch.config import parse_cfg
+    from speedplusbaseline_tpu_torch.quality import (convergence_run, probe_spn_memorize,
+                                                     spn_seed_sweep as sweep)
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        convergence_run.prepare(tmp, STALL_FRAMES, 320, 200, "spn", True, sweep.NUM_CLASSES,
+                                dev)
+        print(f"phase spn_stall: {STALL_FRAMES} frames rendered, labelled and cached in "
+              f"{time.time() - t_phase:.1f} s", flush=True)
+        flags = sweep.run_s_flags(tmp, 2021, 1, os.path.join(tmp, "probe"))
+        _build.reset_launches()
+        t0 = time.time()
+        recs = probe_spn_memorize.main(flags + ["--lr_decay_step", "10000",
+                                                "--steps", str(STALL_PROBE_STEPS)])
+        wall = time.time() - t0
+        last = recs[-1]
+        print(f"phase spn_stall: probe, 1 batch of 48, {STALL_PROBE_STEPS} steps: loss_c "
+              f"{[round(r['loss_c'], 4) for r in recs]} at steps {[r['step'] for r in recs]}, "
+              f"{1e3 * wall / STALL_PROBE_STEPS:.2f} ms a step on the host clock", flush=True)
+        if not (math.isfinite(last["loss_c"]) and last["loss_c"] < STALL_PROBE_MAX):
+            fail(f"spn_stall: the probe's loss_c {last['loss_c']} did not fall under "
+                 f"{STALL_PROBE_MAX} in {STALL_PROBE_STEPS} steps")
+        epochs = max(STALL_LIVE_STEPS) * 48 // STALL_FRAMES
+        for seed in STALL_LIVE_SEEDS:
+            cfg = parse_cfg(sweep.run_s_flags(tmp, seed, epochs, os.path.join(tmp, "live"))
+                            + ["--lr_decay_step", "10000"])
+            shares, loss_c = sweep.live_run(cfg, STALL_LIVE_STEPS)
+            if sorted(shares) != sorted(STALL_LIVE_STEPS):
+                fail(f"spn_stall: live shares at steps {sorted(shares)}, wanted "
+                     f"{STALL_LIVE_STEPS}")
+            for step in STALL_LIVE_STEPS:
+                print(f"phase spn_stall: seed {seed} step {step:3d} live ReLU units "
+                      + " ".join(f"{n} {shares[step][n]:.3f}" for n in sweep.LIVE_LAYERS),
+                      flush=True)
+            if not all(math.isfinite(v) for v in loss_c):
+                fail(f"spn_stall: seed {seed} loss_c {loss_c}")
+            print(f"phase spn_stall: seed {seed} loss_c by epoch (2 steps each) "
+                  f"{[round(v, 4) for v in loss_c[::4]]} (every 4th)", flush=True)
+        launches = dict(_build.launches)
+    if any(launches.values()):
+        fail(f"spn_stall: the path restyles nothing, but the kernels launched {launches}")
+    print(f"phase spn_stall: Run S stall rate (recorded, first 4 epochs): {SPN_STALL_RATE}; "
+          f"launches {launches}; {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_eval(logdir: str, what: str, phase: str, n_rows: int = EVAL_ROWS):
     """The four dumps of one evaluation: ``n_rows`` finite lines each.
     Returns meter name -> the rows."""
@@ -2549,6 +2625,7 @@ def main() -> None:
         default_assets_dir(), "ghiasi_params.msgpack")))
     launches["quality"] = phase_quality(dev)
     launches["toy_ghiasi"] = phase_toy_ghiasi(dev, card)
+    launches["spn_stall"] = phase_spn_stall(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2576,7 +2653,8 @@ def main() -> None:
           "CLI, which has none, 6 styled KRN steps from the RoI cache, the ddp ranks' styled "
           "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
           "phase-space lowering, the quality drivers' CLI processes, of which the style-aug "
-          "arm C restyles 4 steps, the toy-Ghiasi trainer's 600 steps), launches_by_path "
+          "arm C restyles 4 steps, the toy-Ghiasi trainer's 600 steps, the SPN stall probe, "
+          "which restyles nothing), launches_by_path "
           "each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))

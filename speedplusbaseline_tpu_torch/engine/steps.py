@@ -86,14 +86,15 @@ def krn_step(state: TrainState, images: torch.Tensor, keypts: torch.Tensor,
     return _update(state, "krn", loss, sm)
 
 
-def _update(state: TrainState, model_name: str, loss, sm,
-            dann: bool = False) -> Dict[str, torch.Tensor]:
-    """Backward, the sum of the gradients over the ranks, the model's clip,
-    the optimizer step; the detached loss terms."""
+def _update(state: TrainState, model_name: str, loss, sm, dann: bool = False,
+            clip: bool = True) -> Dict[str, torch.Tensor]:
+    """Backward, the sum of the gradients over the ranks, the model's clip
+    (unless ``clip`` is false), the optimizer step; the detached loss terms."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     all_reduce_grads(state.model.parameters())
-    clip_gradients(model_name, state.model.parameters(), dann)
+    if clip:
+        clip_gradients(model_name, state.model.parameters(), dann)
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in sm.items()}
@@ -185,11 +186,12 @@ def make_dann_train_step(cfg, device: torch.device):
 def spn_step(state: TrainState, images: torch.Tensor, y_classes: torch.Tensor,
              y_weights: torch.Tensor, fp16: bool, style_aug=None,
              generator: Optional[torch.Generator] = None,
-             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             z: Optional[torch.Tensor] = None, clip: bool = True) -> Dict[str, torch.Tensor]:
     """One SPN step; ``style_aug=None`` is the plain step. The restyle draws
     its embedding normals (or takes ``z``) and then the forward its dropout
-    masks from ``generator``. Returns {loss_c, loss_r} (device scalars,
-    detached)."""
+    masks from ``generator``; ``clip=False`` leaves out the clip by value
+    (the memorization probe's ``--no_clip``). Returns {loss_c, loss_r}
+    (device scalars, detached)."""
     x = images_to_float(images)
     if style_aug is not None:
         x = style_aug(x, generator, z).to(x.dtype)
@@ -200,12 +202,13 @@ def spn_step(state: TrainState, images: torch.Tensor, y_classes: torch.Tensor,
         classes, weights = model(x, generator, (rows.start or 0, total))
     loss, sm = spn_loss(*(global_rows(t.float()) for t in (classes, weights, y_classes,
                                                              y_weights)))
-    return _update(state, "spn", loss, sm)
+    return _update(state, "spn", loss, sm, clip=clip)
 
 
-def make_spn_train_step(cfg, device: torch.device, style_aug=None):
+def make_spn_train_step(cfg, device: torch.device, style_aug=None, clip: bool = True):
     """Returns fn(state, batch, styled) -> {loss_c, loss_r}; the generator is
-    reseeded from (seed, step) as in make_krn_train_step."""
+    reseeded from (seed, step) as in make_krn_train_step. ``clip``: see
+    spn_step."""
     gen = torch.Generator(device=device)
 
     def train_step(state: TrainState, batch, styled: bool):
@@ -213,7 +216,7 @@ def make_spn_train_step(cfg, device: torch.device, style_aug=None):
         images = batch["image"]
         z = _style_normals(gen, images.shape[0]) if styled else None
         return spn_step(state, images, batch["y_classes"], batch["y_weights"],
-                        cfg.fp16, style_aug if styled else None, gen, z)
+                        cfg.fp16, style_aug if styled else None, gen, z, clip)
 
     return train_step
 

@@ -52,7 +52,7 @@ def generate(root: str, n_train: int, width: int, height: int, model: str,
                                 height=height, domains=("synthetic",), device=dev)
     att = ""
     if num_classes:
-        att = os.path.join(root, "attitude_classes_%d.npy" % num_classes)
+        att = attitude_path(root, num_classes)
         if not os.path.exists(att):
             np.save(att, generate_attitude_classes(num_classes))
     sp = "splits_" + model
@@ -66,19 +66,11 @@ def generate(root: str, n_train: int, width: int, height: int, model: str,
         common.cache(root, "synthetic", [sp + "/train.csv", sp + "/validation.csv"], cache_dir)
 
 
-def run(root: str, n_train: int, epochs: int, input_hw: int, test_every: int, extra=(),
-        width: int = 320, height: int = 200, model: str = "krn", cache: bool = False,
-        num_classes: int = 0, *, dev: torch.device):
-    """Generate when needed, train; returns the Valid/ curve."""
-    cache_dir = os.path.join(root, "cache") if cache else ""
-    class_flags, attitude_npy = [], ""
-    if num_classes:
-        attitude_npy = os.path.join(root, f"attitude_classes_{num_classes}.npy")
-        class_flags = ["--num_classes", str(num_classes), "--attitude_class", attitude_npy]
-    if common.needs_generate(root, model, attitude_npy, num_classes):
-        generate(root, n_train, width, height, model, cache_dir, num_classes, dev)
-
-    common.run_arm("train", [
+def train_flags(root: str, epochs: int, input_hw: int, test_every: int, model: str = "krn",
+                cache: bool = False, num_classes: int = 0) -> list:
+    """The train CLI's flags of a run on ``root`` (without the device flag):
+    the JAX driver's, which its ``train.py`` takes as they are."""
+    flags = [
         "--dataroot", root,
         "--savedir", os.path.join(root, "save"),
         "--logdir", os.path.join(root, "log"),
@@ -94,8 +86,34 @@ def run(root: str, n_train: int, epochs: int, input_hw: int, test_every: int, ex
         "--lr", "1e-3",
         "--weight_decay", "0.01",
         "--test_epoch", str(test_every),
-    ] + class_flags + (["--cache_dir", cache_dir] if cache_dir else [])
-      + common.device_flags(dev) + list(extra))
+    ]
+    if num_classes:
+        flags += ["--num_classes", str(num_classes),
+                  "--attitude_class", attitude_path(root, num_classes)]
+    return flags + (["--cache_dir", os.path.join(root, "cache")] if cache else [])
+
+
+def attitude_path(root: str, num_classes: int) -> str:
+    return os.path.join(root, f"attitude_classes_{num_classes}.npy")
+
+
+def prepare(root: str, n_train: int, width: int, height: int, model: str, cache: bool,
+            num_classes: int, dev: torch.device) -> None:
+    """Generate the dataset of a run on ``root`` when ``needs_generate``
+    says so."""
+    attitude_npy = attitude_path(root, num_classes) if num_classes else ""
+    if common.needs_generate(root, model, attitude_npy, num_classes):
+        generate(root, n_train, width, height, model,
+                 os.path.join(root, "cache") if cache else "", num_classes, dev)
+
+
+def run(root: str, n_train: int, epochs: int, input_hw: int, test_every: int, extra=(),
+        width: int = 320, height: int = 200, model: str = "krn", cache: bool = False,
+        num_classes: int = 0, *, dev: torch.device):
+    """Generate when needed, train; returns the Valid/ curve."""
+    prepare(root, n_train, width, height, model, cache, num_classes, dev)
+    common.run_arm("train", train_flags(root, epochs, input_hw, test_every, model, cache,
+                                        num_classes) + common.device_flags(dev) + list(extra))
     return common.arm_curve(os.path.join(root, "log"))
 
 

@@ -43,7 +43,7 @@ SCRIPTS = {
     "probe_dw.py": PROFILE,
     "probe_resblock.py": PROFILE,
     "probe_shapes.py": PROFILE,
-    "probe_spn_memorize.py": PROFILE,
+    "probe_spn_memorize.py": "quality/probe_spn_memorize.py",
     "profile_ghiasi_parts.py": PROFILE,
     "profile_krn_prefix.py": PROFILE,
     "profile_one.py": PROFILE,

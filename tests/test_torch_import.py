@@ -59,7 +59,8 @@ def test_port_imports_no_jax():
                             "quality.dann_adaptation_run", "quality.styleaug_ab_run",
                             "quality.dump_krn_backbone", "quality.krn_transfer_run",
                             "quality.dump_spn_convs", "train_toy_ghiasi", "convert_assets",
-                            "ops._vjp")} <= mods
+                            "ops._vjp", "quality.probe_spn_memorize",
+                            "quality.spn_seed_sweep")} <= mods
 
 
 def test_train_raises_without_gpu(monkeypatch, tmp_path):
