@@ -123,7 +123,15 @@ Phases, each printing its own lines:
                 for 200 steps at a held lr, whose loss_c must fall under
                 2.5; the live-ReLU shares of two seeds at steps 0 and 64
                 (``quality.spn_seed_sweep.live_run``), printed; B1 and B2
-                launch 0 times.
+                launch 0 times;
+ 18. perf     -- the measuring modules (speedplusbaseline_tpu_torch/perf/)
+                as subprocesses at a small size: bench_host_loader (32
+                images), bench_e2e (96 rows of 1920x1200, 2 epochs, full
+                frames and the RoI cache), ab_bf16_out's four arms and
+                ab_spn_styled's two (10 timed steps each); each JSON line's
+                numbers finite and positive, and every A/B arm's B1 / B2
+                launches 5 / 6 a styled step in the plain lowering and 5 / 2
+                in the phase lowering.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -245,6 +253,12 @@ TOL_EVAL_CROP = 0.02
 TOL_TOY_GRAD = {"relative L2": 5e-3, "worst / largest": 2e-2}
 TOY_MSE_MAX = 0.0114
 TOY_STEPS, TOY_B, TOY_S = 600, 8, 64
+# Phase perf: the rows (one 1920x1200 frame each) and epochs of bench_e2e,
+# the images of bench_host_loader, the timed steps of each A/B arm, and B1's
+# and B2's launches a styled step in each Ghiasi lowering.
+PERF_E2E_IMAGES, PERF_E2E_EPOCHS, PERF_LOADER_IMAGES, PERF_AB_STEPS = 96, 2, 32, 10
+PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6},
+                 "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2}}
 # Device kernels of B1 and B2 by name, as a profiler trace holds them.
 B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
 
@@ -2444,6 +2458,106 @@ def phase_spn_stall(dev):
     return launches
 
 
+def positive_numbers(what: str, record: dict, keys) -> None:
+    """Each of ``keys`` in ``record`` is a finite number above 0."""
+    for k in keys:
+        v = record.get(k)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            fail(f"perf: {what}'s {k} is {v!r}, wanted a finite positive number")
+
+
+def phase_perf(card: str):
+    """The measuring modules (speedplusbaseline_tpu_torch/perf/), each as a
+    subprocess on the card at a small size: bench_host_loader over
+    PERF_LOADER_IMAGES images; bench_e2e over PERF_E2E_IMAGES rows for
+    PERF_E2E_EPOCHS epochs, both modes, on a root that write_dataset filled
+    with frames of phase main's kind (the module's own renderer, which
+    draws each frame's markers at full resolution and takes most of the
+    module's time at its defaults, runs in tests/test_torch_perf.py);
+    ab_bf16_out's four arms and ab_spn_styled's two with --n PERF_AB_STEPS.
+    Each JSON line must hold its keys with finite positive numbers and the
+    card line. The subprocesses' launches come through
+    SPEEDPLUS_LAUNCH_LOG: every A/B arm launches B1 / B2 PERF_LAUNCHES times
+    a styled step of its lowering (plain: 5 / 6, phase: 5 / 2), and the two
+    benches launch neither. Returns the phase's launches."""
+    from speedplusbaseline_tpu_torch.perf import ab_bf16_out, ab_spn_styled
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.time()
+    launches = {"instance_norm_film": 0, "ghiasi_resblock": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "launches.jsonl")
+        env = dict(os.environ, SPEEDPLUS_LAUNCH_LOG=log)
+
+        def run(module: str, *args: str) -> dict:
+            t0 = time.time()
+            cmd = [sys.executable, "-m", f"speedplusbaseline_tpu_torch.perf.{module}", *args]
+            out = subprocess.run(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True, timeout=600)
+            lines = out.stdout.splitlines()
+            if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                fail(f"perf: {' '.join(cmd[2:])} exited with {out.returncode}:\n"
+                     + "\n".join(lines[-40:]))
+            print(f"phase perf: {module} {' '.join(args)} ({time.time() - t0:.1f} s): "
+                  f"{lines[-1]}", flush=True)
+            return json.loads(lines[-1])
+
+        loader = run("bench_host_loader", str(PERF_LOADER_IMAGES))
+        positive_numbers("bench_host_loader", loader, (
+            "python_img_s_per_worker", "cached_img_s_per_worker", "dataloader_img_s",
+            "host_cores"))
+        if (loader["native_img_s_per_worker"] is None) == NATIVE_ON_CARD:
+            fail(f"perf: bench_host_loader's native rate {loader['native_img_s_per_worker']} "
+                 f"with NATIVE_ON_CARD {NATIVE_ON_CARD}")
+
+        root = os.path.join(tmp, "e2e")
+        write_dataset(root, "krn", PERF_E2E_IMAGES, n_images=PERF_E2E_IMAGES)
+        e2e = run("bench_e2e", str(PERF_E2E_IMAGES), str(PERF_E2E_EPOCHS), "both", root)
+        positive_numbers("bench_e2e", e2e, ("e2e_from_disk_img_s", "e2e_cached_img_s",
+                                            "cache_build_s", "host_cores", "num_workers"))
+        if e2e["native"] != NATIVE_ON_CARD:
+            fail(f"perf: bench_e2e ran the native core: {e2e['native']}")
+
+        arms = {}
+        for module in (ab_bf16_out, ab_spn_styled):
+            name = module.__name__.rsplit(".", 1)[1]
+            results = run(name, "--n", str(PERF_AB_STEPS))
+            if sorted(results) != sorted(module.ARMS):
+                fail(f"perf: {name} ran the arms {sorted(results)}, not {module.ARMS}")
+            for arm, record in results.items():
+                positive_numbers(f"{name} {arm}", record, ("styled_step_ms", "device_busy_ms",
+                                                           "steps"))
+                arms[arm] = record
+        for what, record in [("bench_host_loader", loader), ("bench_e2e", e2e)] + sorted(
+                arms.items()):
+            if record.get("card") != card:
+                fail(f"perf: {what}'s card {record.get('card')!r}, not {card!r}")
+
+        with open(log) as f:
+            logged = [json.loads(x) for x in f]
+    for entry in logged:
+        argv = entry["argv"]
+        for name, n in entry["launches"].items():
+            launches[name] += n
+        if "--arm" in argv:
+            record = arms[argv[argv.index("--arm") + 1]]
+            want = {k: v * record["steps"] for k, v in PERF_LAUNCHES[record["lowering"]].items()}
+            if entry["launches"] != want:
+                fail(f"perf: arm {record['arm']} ({record['lowering']} lowering, "
+                     f"{record['steps']} styled steps) launched {entry['launches']}, "
+                     f"wanted {want}")
+        elif any(entry["launches"].values()):
+            fail(f"perf: {argv} launched {entry['launches']}; only the A/B arms restyle")
+    if sum("--arm" in e["argv"] for e in logged) != len(arms):
+        fail(f"perf: {len(arms)} arms, but the launch log holds "
+             f"{sum('--arm' in e['argv'] for e in logged)}")
+    print(f"phase perf: arms (styled step ms on the host clock, device busy ms) "
+          + ", ".join(f"{a} {r['styled_step_ms']:.2f} / {r['device_busy_ms']:.2f}"
+                      for a, r in arms.items())
+          + f"; launches {launches}; {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_eval(logdir: str, what: str, phase: str, n_rows: int = EVAL_ROWS):
     """The four dumps of one evaluation: ``n_rows`` finite lines each.
     Returns meter name -> the rows."""
@@ -2626,6 +2740,7 @@ def main() -> None:
     launches["quality"] = phase_quality(dev)
     launches["toy_ghiasi"] = phase_toy_ghiasi(dev, card)
     launches["spn_stall"] = phase_spn_stall(dev)
+    launches["perf"] = phase_perf(card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2654,7 +2769,8 @@ def main() -> None:
           "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
           "phase-space lowering, the quality drivers' CLI processes, of which the style-aug "
           "arm C restyles 4 steps, the toy-Ghiasi trainer's 600 steps, the SPN stall probe, "
-          "which restyles nothing), launches_by_path "
+          "which restyles nothing, the perf modules' A/B arms, whose steps all restyle), "
+          "launches_by_path "
           "each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")
     print(json.dumps({"kernels": kernels}))

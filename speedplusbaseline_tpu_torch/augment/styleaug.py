@@ -53,18 +53,21 @@ class StyleAugmentor:
 
     ``phase_space`` runs the generator's phase-space lowering (the JAX
     augmentor's ``tpu_opt``, its default on an accelerator); the port's
-    default is the plain lowering.
+    default is the plain lowering. ``f32_out`` returns the generator's f32
+    sigmoid instead of its cast to ``dtype`` (``Ghiasi.f32_out``).
     """
 
     def __init__(self, alpha: float, stats, dtype: torch.dtype = torch.float32,
-                 device: torch.device = torch.device("cuda"), phase_space: bool = False):
+                 device: torch.device = torch.device("cuda"), phase_space: bool = False,
+                 f32_out: bool = False):
         self.alpha = float(alpha)
         self.device = torch.device(device)
         A, mean, base = stats
         self.A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
         self.mean = torch.as_tensor(mean, dtype=torch.float32, device=self.device)
         self.base = torch.as_tensor(base, dtype=torch.float32, device=self.device)
-        self.ghiasi = Ghiasi(dtype, phase_space).to(self.device).eval().requires_grad_(False)
+        self.ghiasi = Ghiasi(dtype, phase_space, f32_out).to(self.device)
+        self.ghiasi.eval().requires_grad_(False)
 
     def sample_embedding(self, n: int, generator: Optional[torch.Generator] = None,
                          z: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -77,7 +80,8 @@ class StyleAugmentor:
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                  z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Restyle (B, 3, H, W) in [0, 1]; returns the generator's dtype."""
+        """Restyle (B, 3, H, W) in [0, 1]; returns the generator's dtype (f32
+        with ``f32_out``)."""
         emb = self.sample_embedding(x.shape[0], generator, z)
         emb = self.alpha * emb + (1.0 - self.alpha) * self.base
         return self.ghiasi(x, emb)

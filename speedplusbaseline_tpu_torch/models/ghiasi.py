@@ -13,8 +13,9 @@ XLA.
 
 ``dtype`` is the compute dtype, as the flax module's: the input and the conv
 weights are cast to it, FiLM stays f32, and the output is the sigmoid cast to
-``dtype``. Tensors are NCHW in channels_last memory; the kernels see the
-(B, H, W, C) view of the same storage. A float64 module in the plain
+``dtype``, or the f32 sigmoid itself with ``f32_out`` (the JAX module's flag,
+which only moves that last cast). Tensors are NCHW in channels_last memory;
+the kernels see the (B, H, W, C) view of the same storage. A float64 module in the plain
 lowering (the CPU tests' float64 steps) computes FiLM, the norms and the
 blocks in float64.
 
@@ -173,10 +174,12 @@ class Ghiasi(nn.Module):
     # The layers whose convs the phase-space lowering rewrites.
     _PHASE_LAYERS = (0, 1, 2, 8, 9, 10)
 
-    def __init__(self, dtype: torch.dtype = torch.float32, phase_space: bool = False):
+    def __init__(self, dtype: torch.dtype = torch.float32, phase_space: bool = False,
+                 f32_out: bool = False):
         super().__init__()
         self.dtype = dtype
         self.phase_space = phase_space
+        self.f32_out = f32_out
         self.layer0 = ConvInRelu(3, 32, 9, 1)
         self.layer1 = ConvInRelu(32, 64, 3, 2)
         self.layer2 = ConvInRelu(64, 128, 3, 2)
@@ -201,6 +204,12 @@ class Ghiasi(nn.Module):
         return tuple(rewrite[i](_hwio(getattr(self, f"layer{i}").conv))
                      for i in self._PHASE_LAYERS)
 
+    def _out(self, z: torch.Tensor) -> torch.Tensor:
+        """The sigmoid of the output layer: in f32 with ``f32_out``, else in
+        ``self.dtype``."""
+        z = torch.sigmoid(z.to(compute_dtype(z.dtype)))
+        return z if self.f32_out else z.to(self.dtype)
+
     @torch.no_grad()
     def _refresh_phase(self) -> None:
         for i, w in zip(self._PHASE_LAYERS, self._phase_kernels()):
@@ -208,9 +217,9 @@ class Ghiasi(nn.Module):
 
     def forward(self, x, styles):
         """x: (B, 3, H, W) in [0, 1]; styles: (B, 100). Returns
-        (B, 3, 4 ceil(H/4), 4 ceil(W/4)) in ``self.dtype``: the two stride-2
-        convs round odd sides up and the two upsamples double them, so SPN's
-        227^2 comes out 228^2, as in the JAX package's plain lowering and the
+        (B, 3, 4 ceil(H/4), 4 ceil(W/4)) in ``self.dtype`` (f32 with
+        ``f32_out``): the two stride-2 convs round odd sides up and the two
+        upsamples double them, so SPN's 227^2 comes out 228^2, as in the JAX package's plain lowering and the
         reference. Runs outside any autocast region: its dtypes are set here,
         as the flax module sets them."""
         with torch.autocast(x.device.type, enabled=False):
@@ -224,7 +233,7 @@ class Ghiasi(nn.Module):
             x = self.layer8(x, styles)
             x = self.layer9(x, styles)
             x = self.layer10(x, styles)
-            return torch.sigmoid(x.to(compute_dtype(x.dtype))).to(self.dtype)
+            return self._out(x)
 
     def _phase_forward(self, x: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
         """The JAX module's ``_phase_forward``, layer for layer. A side that
@@ -268,5 +277,4 @@ class Ghiasi(nn.Module):
         l10 = self.layer10
         z = conv9x9_phase_dp(a, None, l10.conv.bias, phase_w=w10)
         z = phase_instance_norm_packed(z, l10.fc_gamma(styles), l10.fc_beta(styles), phases=16)
-        z = torch.sigmoid(z.to(compute_dtype(z.dtype))).to(self.dtype)
-        return _nchw(depth_to_space2(depth_to_space2(z)))
+        return _nchw(depth_to_space2(depth_to_space2(self._out(z))))

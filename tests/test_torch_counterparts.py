@@ -12,7 +12,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "speedplusbaseline_tpu_torch"
 
 # Reasons a JAX file has no counterpart of its own.
-BENCH = "the port's bench is ROADMAP item 12 (a benchmark PR)"
 PROFILE = ("a TPU probe or profile: the port's is the profile_step module and "
            "chip_smoke.py's phases")
 NEVER_SHIPPED = "a measured TPU dead end, kept for the record and never shipped"
@@ -25,10 +24,10 @@ PACKAGE = {
 }
 
 SCRIPTS = {
-    "ab_bf16_out.py": BENCH,
-    "ab_spn_styled.py": BENCH,
-    "bench_e2e.py": BENCH,
-    "bench_host_loader.py": BENCH,
+    "ab_bf16_out.py": "perf/ab_bf16_out.py",
+    "ab_spn_styled.py": "perf/ab_spn_styled.py",
+    "bench_e2e.py": "perf/bench_e2e.py",
+    "bench_host_loader.py": "perf/bench_host_loader.py",
     "cache_dataset.py": "cache_dataset.py",
     "convergence_run.py": "quality/convergence_run.py",
     "convert_assets.py": "convert_assets.py",
@@ -55,7 +54,7 @@ SCRIPTS = {
     "trace_step.py": PROFILE,
     "train_toy_ghiasi.py": "train_toy_ghiasi.py",
 }
-REASONS = (BENCH, PROFILE, NEVER_SHIPPED)
+REASONS = (PROFILE, NEVER_SHIPPED)
 
 
 def package_files():
