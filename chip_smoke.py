@@ -131,7 +131,15 @@ Phases, each printing its own lines:
                 ab_spn_styled's two (10 timed steps each); each JSON line's
                 numbers finite and positive, and every A/B arm's B1 / B2
                 launches 5 / 6 a styled step in the plain lowering and 5 / 2
-                in the phase lowering.
+                in the phase lowering;
+ 19. bench    -- the bench (``python -m speedplusbaseline_tpu_torch.bench``)
+                at its defaults as a subprocess: its one JSON line must hold
+                the root bench.py's keys and the port's, every number finite
+                and positive (the native host rate null where NATIVE_ON_CARD
+                is false), the card line and the lowering; its krn and spn
+                children's B1 / B2 launches 5 / 6 times the styled steps that
+                ``bench.krn_styled_steps`` / ``spn_styled_steps`` count, and
+                no launch in the others.
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 result lines. Imports nothing of JAX.
@@ -2458,12 +2466,12 @@ def phase_spn_stall(dev):
     return launches
 
 
-def positive_numbers(what: str, record: dict, keys) -> None:
+def positive_numbers(what: str, record: dict, keys, phase: str = "perf") -> None:
     """Each of ``keys`` in ``record`` is a finite number above 0."""
     for k in keys:
         v = record.get(k)
         if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
-            fail(f"perf: {what}'s {k} is {v!r}, wanted a finite positive number")
+            fail(f"{phase}: {what}'s {k} is {v!r}, wanted a finite positive number")
 
 
 def phase_perf(card: str):
@@ -2555,6 +2563,76 @@ def phase_perf(card: str):
           + ", ".join(f"{a} {r['styled_step_ms']:.2f} / {r['device_busy_ms']:.2f}"
                       for a, r in arms.items())
           + f"; launches {launches}; {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# Phase bench: the keys of the bench's line that hold no number (the native
+# host rate is null where NATIVE_ON_CARD is false) and the seconds it may take.
+BENCH_TEXT_KEYS = {"metric": "krn_train_images_per_sec_per_chip", "unit": "img/s",
+                   "baseline_is_estimate": True}
+BENCH_TIMEOUT_S = 900
+
+
+def phase_bench(card: str):
+    """The bench at its defaults, as a subprocess on the card (KRN at 224^2
+    gated at texture_ratio 0.5, the eval step, the AdamW DANN step, the plain
+    and styled SPN steps, each in a child process, and the host rates). Its
+    last line must hold every number finite and positive, the card line and
+    the default (plain) lowering. Through SPEEDPLUS_LAUNCH_LOG, the krn and
+    spn children launch B1 / B2 PERF_LAUNCHES times their styled steps, as
+    ``bench.krn_styled_steps`` and ``spn_styled_steps`` count them, and the
+    other processes launch neither. Returns the phase's launches."""
+    from speedplusbaseline_tpu_torch import bench
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "launches.jsonl")
+        cmd = [sys.executable, "-m", "speedplusbaseline_tpu_torch.bench"]
+        out = subprocess.run(cmd, cwd=here, env=dict(os.environ, SPEEDPLUS_LAUNCH_LOG=log),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             timeout=BENCH_TIMEOUT_S)
+        lines = out.stdout.splitlines()
+        if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+            fail(f"bench: exited with {out.returncode}:\n" + "\n".join(lines[-60:]))
+        with open(log) as f:
+            logged = [json.loads(x) for x in f]
+    line = json.loads(lines[-1])
+    print("\n".join(ln for ln in lines[:-1] if "device busy" in ln), flush=True)
+    print(f"phase bench: {time.time() - t_phase:.1f} s: {lines[-1]}", flush=True)
+    for k, v in BENCH_TEXT_KEYS.items():
+        if line.get(k) != v:
+            fail(f"bench: {k} is {line.get(k)!r}, not {v!r}")
+    if line.get("card") != card or line.get("lowering") != "plain":
+        fail(f"bench: card {line.get('card')!r} (wanted {card!r}), lowering "
+             f"{line.get('lowering')!r} (wanted the default, plain)")
+    native = line.get("host_native_img_s_per_worker", "missing")
+    if (native is None) == NATIVE_ON_CARD:
+        fail(f"bench: the native host rate is {native!r} with NATIVE_ON_CARD {NATIVE_ON_CARD}")
+    numbers = [k for k in line if k not in BENCH_TEXT_KEYS and k not in (
+        "card", "lowering", "host_rate_spread", "host_native_lt_python")
+        and not (k == "host_native_img_s_per_worker" and native is None)]
+    positive_numbers("the line", line, numbers, "bench")
+    for path, spread in line["host_rate_spread"].items():
+        positive_numbers(f"host_rate_spread {path}", dict(enumerate(spread)), (0, 1), "bench")
+
+    per_step = PERF_LAUNCHES[line["lowering"]]
+    styled = {"krn": bench.krn_styled_steps(), "spn": bench.spn_styled_steps()}
+    launches = {"instance_norm_film": 0, "ghiasi_resblock": 0}
+    measured = set()
+    for entry in logged:
+        argv = entry["argv"]
+        measure = argv[argv.index("--measure") + 1] if "--measure" in argv else None
+        measured.add(measure)
+        want = {k: v * styled.get(measure, 0) for k, v in per_step.items()}
+        if entry["launches"] != want:
+            fail(f"bench: {argv} launched {entry['launches']}, wanted {want} "
+                 f"({styled.get(measure, 0)} styled steps)")
+        for name, n in entry["launches"].items():
+            launches[name] += n
+    if measured != {None, *bench.MEASURES}:
+        fail(f"bench: the launch log holds the processes {measured}")
+    print(f"phase bench: styled steps {styled}; launches {launches}", flush=True)
     return launches
 
 
@@ -2741,6 +2819,7 @@ def main() -> None:
     launches["toy_ghiasi"] = phase_toy_ghiasi(dev, card)
     launches["spn_stall"] = phase_spn_stall(dev)
     launches["perf"] = phase_perf(card)
+    launches["bench"] = phase_bench(card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2762,14 +2841,15 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
-          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the nine "
+          "bf16, and under \"spn\" per styled SPN step (227^2); launches count the "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "
           "CLI, which has none, 6 styled KRN steps from the RoI cache, the ddp ranks' styled "
           "KRN and SPN steps and DANN steps, two ranks each, 1 styled KRN step with the "
           "phase-space lowering, the quality drivers' CLI processes, of which the style-aug "
           "arm C restyles 4 steps, the toy-Ghiasi trainer's 600 steps, the SPN stall probe, "
-          "which restyles nothing, the perf modules' A/B arms, whose steps all restyle), "
+          "which restyles nothing, the perf modules' A/B arms, whose steps all restyle, the "
+          "bench's krn and spn children, whose styled steps restyle), "
           "launches_by_path "
           "each; B1's bound_ms counts "
           "its split-bf16 passes, bound_ms_bf16_tensor_core one bf16 pass of its f32 work")

@@ -8,8 +8,11 @@
 * The device from ``--no_cuda`` (a GPU, or an error when there is none), and
   the card's name and power limit, which every JSON line carries under
   ``"card"``.
-* The styled train step on a resident batch that both A/Bs time, and their
-  CLI, which runs each arm as its own process.
+* The recipe of a train step on a resident batch (its config, batch, model
+  and generator), the device's busy ms a step, and the styled step that both
+  A/Bs time.
+* The runner that starts a measure or an arm as its own process, once, and
+  the A/Bs' CLI.
 """
 from __future__ import annotations
 
@@ -41,6 +44,10 @@ SIDE = {"krn": 224, "spn": 227}
 BATCH = 48
 #: Timed steps of an A/B arm (the JAX scripts' n).
 CHAIN_STEPS = 150
+#: Steps profiled for the device's busy ms (each profile runs one more first).
+PROFILE_STEPS = 3
+#: Seconds a child process may take (the root bench.py's _ATTEMPT_TIMEOUT_S).
+CHILD_TIMEOUT_S = 900
 
 
 def device(no_cuda: bool) -> torch.device:
@@ -108,44 +115,91 @@ def style_stats():
         return random_style_stats(0)
 
 
+def recipe_cfg(model_name: str, batch: int = BATCH, side: Optional[int] = None, **kw):
+    """The JAX benches' train recipe: bf16 (autocast), AdamW lr 1e-3 and
+    weight decay 0.01; KRN at 224^2, SPN at 227^2 with the config's classes.
+    ``kw`` sets further config keys."""
+    side = side or SIDE[model_name]
+    return default_cfg(model_name=model_name, batch_size=batch, input_shape=(side, side),
+                       optimizer="adamw", lr=1e-3, weight_decay=0.01, fp16=True, **kw)
+
+
+def resident_batch(cfg) -> Dict[str, np.ndarray]:
+    """The JAX benches' batch from ``RandomState(0)``, in their order of
+    draws: KRN image then keypts; SPN y_classes and y_weights (each row
+    normalized) then image."""
+    batch, shape = cfg.batch_size, cfg.input_shape
+    rs = np.random.RandomState(0)
+    if cfg.model_name == "krn":
+        return {"image": rs.rand(batch, *shape, 3).astype(np.float32),
+                "keypts": rs.rand(batch, 2, cfg.num_keypoints).astype(np.float32)}
+    yc = rs.rand(batch, cfg.num_classes).astype(np.float32)
+    yw = rs.rand(batch, cfg.num_classes).astype(np.float32)
+    return {"y_classes": yc / yc.sum(1, keepdims=True),
+            "y_weights": yw / yw.sum(1, keepdims=True),
+            "image": rs.rand(batch, *shape, 3).astype(np.float32)}
+
+
+def to_device(arrays: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def new_state(cfg, dev: torch.device) -> TrainState:
+    """The model of ``cfg`` from seed 0 (JAX's ``PRNGKey(0)``), channels_last
+    on ``dev``, and its optimizer."""
+    torch.manual_seed(0)
+    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
+    return TrainState(model, build_optimizer(cfg, model.parameters()))
+
+
+def generator(cfg, dev: torch.device, **kw) -> StyleAugmentor:
+    """The bf16 style augmentor on the shipped statistics, its generator's
+    weights from seed 1 (flax's init, ``flax_default_init_``, as JAX's
+    ``init_params(PRNGKey(1))``); ``kw`` (``phase_space``, ``f32_out``) goes
+    to the StyleAugmentor."""
+    torch.manual_seed(1)
+    return StyleAugmentor(cfg.texture_alpha, style_stats(), torch.bfloat16, dev, **kw)
+
+
+def lowering(aug: StyleAugmentor) -> str:
+    """The Ghiasi lowering that ``aug`` runs: ``"plain"`` or ``"phase"``."""
+    return "phase" if aug.ghiasi.phase_space else "plain"
+
+
+def busy_ms(state, step, data, styled: bool, dev: torch.device, label: str) -> Optional[float]:
+    """The device's busy ms a step over PROFILE_STEPS profiled steps of
+    ``step(state, data, styled)`` (torch.profiler; it runs one step more
+    first); None on the CPU, where no step runs."""
+    if dev.type != "cuda":
+        return None
+    from ..profile_step import profile
+
+    return profile(state, step, data, styled, steps=PROFILE_STEPS, table=False, label=label)
+
+
+def check_finite(what: str, losses: Dict[str, torch.Tensor]) -> None:
+    """Raise when a loss term of the last step is not finite."""
+    values = {k: float(v) for k, v in losses.items()}
+    if not all(math.isfinite(v) for v in values.values()):
+        raise RuntimeError(f"{what}: non-finite loss {values}")
+
+
 def styled_arm(arm: str, model_name: str, dev: torch.device, *, f32_out: bool = False,
                phase_space: bool = False, batch: int = BATCH, side: Optional[int] = None,
                n: int = CHAIN_STEPS) -> dict:
     """Time the styled train step of ``model_name`` on one resident batch
     and print its JSON line: WARMUP_STEPS steps, then ``timed_chain`` over
-    ``n``; on the card also the device's busy ms a step over 3 steps
-    (torch.profiler). The JAX A/Bs' recipe: batch 48, bf16 (autocast and
-    generator), AdamW lr 1e-3 and weight decay 0.01; KRN at 224^2, SPN at
-    227^2 with the config's classes and normalized random targets; the batch
-    from ``RandomState(0)``, the model's init from seed 0 and the
-    generator's (flax's init, ``flax_default_init_``) from seed 1, as JAX's
-    ``PRNGKey(0)`` and ``init_params(PRNGKey(1))``. ``phase_space`` and
+    ``n``; on the card also the device's busy ms a step (``busy_ms``). The
+    JAX A/Bs' recipe (``recipe_cfg``, batch 48), batch (``resident_batch``),
+    model (``new_state``) and generator (``generator``). ``phase_space`` and
     ``f32_out`` go to the StyleAugmentor. The line holds the JAX keys
     (``arm``, ``styled_step_ms``) and the port's: ``lowering``, ``batch``,
     ``input``, ``steps`` (every step run, for launch counts),
     ``device_busy_ms`` (null on the CPU) and ``card``."""
-    side = side or SIDE[model_name]
-    shape = (side, side)
-    cfg = default_cfg(model_name=model_name, batch_size=batch, input_shape=shape,
-                      optimizer="adamw", lr=1e-3, weight_decay=0.01, fp16=True)
-    rs = np.random.RandomState(0)
-    if model_name == "krn":
-        data = {"image": rs.rand(batch, *shape, 3).astype(np.float32),
-                "keypts": rs.rand(batch, 2, 11).astype(np.float32)}
-    else:
-        yc = rs.rand(batch, cfg.num_classes).astype(np.float32)
-        yw = rs.rand(batch, cfg.num_classes).astype(np.float32)
-        data = {"y_classes": yc / yc.sum(1, keepdims=True),
-                "y_weights": yw / yw.sum(1, keepdims=True),
-                "image": rs.rand(batch, *shape, 3).astype(np.float32)}
-    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-
-    torch.manual_seed(0)
-    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
-    torch.manual_seed(1)
-    aug = StyleAugmentor(cfg.texture_alpha, style_stats(), torch.bfloat16, dev,
-                         phase_space=phase_space, f32_out=f32_out)
+    cfg = recipe_cfg(model_name, batch, side)
+    data = to_device(resident_batch(cfg), dev)
+    state = new_state(cfg, dev)
+    aug = generator(cfg, dev, phase_space=phase_space, f32_out=f32_out)
     train_step = make_train_step(cfg, dev, aug)
     steps, last = [0], [{}]
 
@@ -161,38 +215,37 @@ def styled_arm(arm: str, model_name: str, dev: torch.device, *, f32_out: bool = 
         once()
     sync(dev)
     per_step = timed_chain(once, n, dev)
-    busy = None
-    if dev.type == "cuda":
-        from ..profile_step import profile
+    busy = busy_ms(state, step, data, True, dev, f"{arm} styled")
+    check_finite(f"arm {arm}", last[0])
+    return emit({"arm": arm, "styled_step_ms": per_step * 1e3, "lowering": lowering(aug),
+                 "batch": batch, "input": cfg.input_shape[0], "steps": steps[0],
+                 "device_busy_ms": busy}, dev)
 
-        busy = profile(state, step, data, True, table=False, label=f"{arm} styled")
-    losses = {k: float(v) for k, v in last[0].items()}
-    if not all(math.isfinite(v) for v in losses.values()):
-        raise RuntimeError(f"arm {arm}: non-finite loss {losses}")
-    return emit({"arm": arm, "styled_step_ms": per_step * 1e3,
-                 "lowering": "phase" if phase_space else "plain", "batch": batch,
-                 "input": side, "steps": steps[0], "device_busy_ms": busy}, dev)
+
+def run_child(cmd: Sequence[str], label: str, timeout_s: float = CHILD_TIMEOUT_S) -> dict:
+    """Run ``cmd`` once, from the repository root, and return the last line
+    of its standard output that starts with ``{``, parsed; its output goes to
+    stderr, each line under ``[label]``. A nonzero exit
+    (``CalledProcessError``), a timeout (``TimeoutExpired``) or no JSON line
+    (``RuntimeError``) raises: there is no retry."""
+    out = subprocess.run(list(cmd), cwd=REPO, stdout=subprocess.PIPE, text=True,
+                         timeout=timeout_s, check=True)
+    lines = out.stdout.splitlines()
+    sys.stderr.write("".join(f"[{label}] {ln}\n" for ln in lines))
+    records = [ln for ln in lines if ln.startswith("{")]
+    if not records:
+        raise RuntimeError(f"{label} printed no JSON line")
+    return json.loads(records[-1])
 
 
 def run_arms(module: str, arms: Sequence[str], flags: Sequence[str],
              timeout_s: float) -> Dict[str, dict]:
     """Run ``python -m speedplusbaseline_tpu_torch.perf.<module> --arm A
-    flags`` for each arm in turn, each its own process, from the repository
-    root; {arm: its JSON line}. The child's other output goes to stderr. An
-    arm that exits nonzero or times out raises: there is no retry."""
-    results = {}
-    for arm in arms:
-        out = subprocess.run(
-            [sys.executable, "-m", f"speedplusbaseline_tpu_torch.perf.{module}",
-             "--arm", arm, *flags], cwd=REPO, stdout=subprocess.PIPE, text=True,
-            timeout=timeout_s, check=True)
-        lines = out.stdout.splitlines()
-        sys.stderr.write("".join(f"[{arm}] {ln}\n" for ln in lines))
-        records = [ln for ln in lines if ln.startswith("{")]
-        if not records:
-            raise RuntimeError(f"arm {arm} printed no JSON line")
-        results[arm] = json.loads(records[-1])
-    return results
+    flags`` for each arm in turn, each its own process (``run_child``);
+    {arm: its JSON line}."""
+    return {arm: run_child([sys.executable, "-m", f"speedplusbaseline_tpu_torch.perf.{module}",
+                            "--arm", arm, *flags], f"arm {arm}", timeout_s)
+            for arm in arms}
 
 
 def ab_main(module: str, arms: Sequence[str], run_arm, argv: Optional[Sequence[str]]) -> dict:
@@ -203,7 +256,8 @@ def ab_main(module: str, arms: Sequence[str], run_arm, argv: Optional[Sequence[s
     ap = argparse.ArgumentParser(prog=f"python -m speedplusbaseline_tpu_torch.perf.{module}")
     ap.add_argument("--arm", choices=arms)
     ap.add_argument("--n", type=int, default=CHAIN_STEPS, help="timed steps")
-    ap.add_argument("--timeout", type=int, default=900, help="seconds an arm may take")
+    ap.add_argument("--timeout", type=int, default=CHILD_TIMEOUT_S,
+                    help="seconds an arm may take")
     ap.add_argument("--no_cuda", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
     dev = device(args.no_cuda)

@@ -1,6 +1,7 @@
 """Every Python file of the JAX package (``speedplusbaseline_tpu/``) and of
 its ``scripts/`` has a counterpart in the port (``speedplusbaseline_tpu_torch/``)
-or a stated reason for having none. The table below is the claim; the tests
+or a stated reason for having none, and so has each user-facing entry point
+at the repository root. The table below is the claim; the tests
 walk both trees, so a JAX file without a row, a row without a JAX file, or a
 counterpart that does not exist fails."""
 import glob
@@ -55,6 +56,25 @@ SCRIPTS = {
     "train_toy_ghiasi.py": "train_toy_ghiasi.py",
 }
 REASONS = (PROFILE, NEVER_SHIPPED)
+
+# The user-facing entry points at the repository root and the port modules
+# that take their place (``python -m speedplusbaseline_tpu_torch.<module>``).
+# The root's other Python files are no user's entry point: chip_smoke.py is
+# the port's card check and __graft_entry__.py the JAX package's compile
+# check.
+ROOT = {
+    "adapt.py": "adapt.py",
+    "bench.py": "bench.py",
+    "preprocess.py": "preprocess.py",
+    "test.py": "test.py",
+    "train.py": "train.py",
+}
+
+
+@pytest.mark.parametrize("path", sorted(ROOT))
+def test_each_root_entry_point_has_a_counterpart(path):
+    assert os.path.isfile(os.path.join(REPO, path)), path
+    assert os.path.isfile(os.path.join(REPO, PORT, ROOT[path])), (path, ROOT[path])
 
 
 def package_files():
