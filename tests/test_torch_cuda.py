@@ -364,6 +364,38 @@ def test_ghiasi_phase_space_on_card_matches_plain(dev, dtype, side):
     _check(got.float(), ref, tol)
 
 
+@pytest.mark.parametrize("seed", [1, 32])
+def test_ghiasi_bf16_flax_init_within_rule_of_jax(dev, seed):
+    """K(s): the bf16 generator with B1 and B2 on the card against the plain
+    f32 generator on the CPU, on the flax-init weights of ``seed`` and
+    chip_smoke phase ghiasi's inputs, held to JAX's bf16 generator at the
+    same weights by chip_smoke's rule (max within 1.5x, mean within 1.25x
+    of ``chip_smoke.JAX_GHIASI_BF16``, which tests/test_torch_ghiasi_bf16.py
+    holds to JAX)."""
+    import os
+    import sys
+
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    x, st = chip_smoke.ghiasi_inputs()
+    torch.manual_seed(seed)
+    net = Ghiasi().eval()
+    card = Ghiasi(torch.bfloat16).to(dev).eval()
+    card.load_state_dict(net.state_dict())
+    before = dict(_build.launches)
+    with torch.no_grad():
+        ref = net(x, st)
+        got = card(x.to(dev), st.to(dev)).float().cpu()
+    assert {k: _build.launches[k] - v for k, v in before.items()} == {
+        "instance_norm_film": 6, "ghiasi_resblock": 5}
+    err = (got - ref).abs()
+    assert not chip_smoke.ghiasi_bf16_fault(seed, err.max().item(), err.mean().item()), (
+        err.max().item(), err.mean().item(), chip_smoke.JAX_GHIASI_BF16[seed])
+
+
 def test_two_ranks_over_gloo_on_the_card(dev):
     """Two ranks on one card over gloo with CUDA tensors: one f32 step (TF32
     off) of the KRN trainer at the main path's 224^2, global batch 32, SGD
