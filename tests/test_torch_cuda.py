@@ -381,8 +381,8 @@ def test_ghiasi_bf16_flax_init_within_rule_of_jax(dev, seed):
     import chip_smoke
 
     x, st = chip_smoke.ghiasi_inputs()
-    torch.manual_seed(seed)
     net = Ghiasi().eval()
+    net.load_state_dict(chip_smoke.flax_init_ghiasi(seed))
     card = Ghiasi(torch.bfloat16).to(dev).eval()
     card.load_state_dict(net.state_dict())
     before = dict(_build.launches)

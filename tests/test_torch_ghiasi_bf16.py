@@ -1,8 +1,9 @@
 """The bf16 Ghiasi generator on flax-init weights: the port's plain bf16
 generator against JAX's bf16 generator, each against its own f32 generator.
 
-The weights are ``torch.manual_seed(s); Ghiasi()`` (the port's flax init)
-for each seed s of ``SEEDS``, taken into JAX by ``state_dict_to_flax``; the
+The weights are flax's default init drawn with numpy
+(``chip_smoke.flax_init_ghiasi(s)``, the same in every torch version) for
+each seed s of ``SEEDS``, taken into JAX by ``state_dict_to_flax``; the
 inputs are chip_smoke's phase ghiasi's (``torch.Generator().manual_seed(1)``:
 x = rand(2, 3, 224, 224), style = randn(2, 100) * 0.5). For each seed:
 
@@ -14,8 +15,11 @@ x = rand(2, 3, 224, 224), style = randn(2, 100) * 0.5). For each seed:
 
 Each is (max, mean) of |bf16 - f32| over the 301,056 outputs. No fixed
 bound fits the bf16 generator on these weights (JAX's own max passes 2^-6 at
-some seeds and reads 1.1e-2 at others), so the port is held to JAX at the
-same seed: P(s) within 1.02x of J(s) on both measures. chip_smoke phase
+every seed but one here), so the port is held to JAX at the same seed:
+P(s) within chip_smoke's rule of J(s) (max within 1.5x, mean within 1.25x),
+and its mean within 1.02x: the mean over 301,056 outputs is the port's and
+JAX's bf16 function, where the max is one element, which moves by a few
+percent with the rounding of a single intermediate value. chip_smoke phase
 ghiasi holds the card's bf16 generator to ``chip_smoke.JAX_GHIASI_BF16``
 (J(s) as constants, since chip_smoke imports no JAX) by the rule
 ``chip_smoke.ghiasi_bf16_fault``; ``test_chip_smoke_constants_match_jax``
@@ -43,8 +47,8 @@ from speedplusbaseline_tpu_torch.convert import state_dict_to_flax  # noqa: E402
 from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi  # noqa: E402
 
 SEEDS = tuple(sorted(chip_smoke.JAX_GHIASI_BF16))
-# P(s) against J(s), both measures; the constants against J(s).
-RATIO_PORT, RATIO_CONSTANTS = 1.02, 0.02
+# P(s)'s mean against J(s)'s; the constants against J(s).
+RATIO_MEAN, RATIO_CONSTANTS = 1.02, 0.02
 OVER = 2.0 ** -6
 
 
@@ -56,8 +60,7 @@ def stats(got: np.ndarray, ref: np.ndarray):
 
 @functools.lru_cache(maxsize=None)
 def weights(seed: int):
-    torch.manual_seed(seed)
-    return Ghiasi().state_dict()
+    return chip_smoke.flax_init_ghiasi(seed)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,8 +104,8 @@ def port_errors(seed: int):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_port_bf16_within_rule_of_jax(seed):
     j, p = jax_errors(seed)["pallas"], port_errors(seed)
-    assert p[0] <= RATIO_PORT * j[0], f"seed {seed}: port max {p[0]:.4e}, JAX {j[0]:.4e}"
-    assert p[1] <= RATIO_PORT * j[1], f"seed {seed}: port mean {p[1]:.4e}, JAX {j[1]:.4e}"
+    assert not chip_smoke.ghiasi_bf16_fault(seed, p[0], p[1]), (seed, p, j)
+    assert p[1] <= RATIO_MEAN * j[1], f"seed {seed}: port mean {p[1]:.4e}, JAX {j[1]:.4e}"
 
 
 def test_chip_smoke_constants_match_jax():
