@@ -85,7 +85,8 @@ Phases, each printing its own lines:
                 device time and on the host clock; the DANN step on resident
                 batches of 16 + 16 in f32 and in bf16;
  13. ddp      -- data parallelism on the one card: two ranks (spawned
-                processes) over gloo with CUDA tensors each take one f32
+                processes, one process group for the three models) over
+                gloo with CUDA tensors each take one f32
                 step (SGD, lr 1e-2) of the styled KRN trainer (224^2, global
                 batch 48), the styled SPN trainer (227^2, 5000 classes) and
                 the DANN step (16 + 16) on their halves of the global batch,
@@ -101,12 +102,12 @@ Phases, each printing its own lines:
                 restyle by CUDA events and by torch.profiler with the share
                 of its two 9x9 convs, and a styled KRN step with each;
  15. quality  -- every quality driver (speedplusbaseline_tpu_torch/quality/)
-                through its module at a small size, its CLIs as
-                subprocesses on the card: KRN memorization (96 frames at
-                224^2, validated on the train split: the best SPEED score
-                under half the first), the DANN A/B, the style-aug A/B's arm C
-                (B1 and B2 must launch; the subprocesses' counts come through
-                SPEEDPLUS_LAUNCH_LOG), the transfer A/B with the boot arm's
+                through its module at a small size on the card, its CLI
+                arms in this process: KRN memorization (96 frames at 224^2,
+                validated on the train split: the best SPEED score under
+                half the first; the driver as a process beside the rest),
+                the DANN A/B, the style-aug A/B's arm C (B1 and B2 must
+                launch), the transfer A/B with the boot arm's
                 trunk at step 0 equal to the donor's bit for bit, and SPN
                 conv1-5 through dump_spn_convs and maybe_load_pretrained bit
                 for bit; each driver's final JSON line;
@@ -130,11 +131,11 @@ Phases, each printing its own lines:
                 (``quality.spn_seed_sweep.live_run``), printed; B1 and B2
                 launch 0 times;
  18. perf     -- the measuring modules (speedplusbaseline_tpu_torch/perf/)
-                at a small size: bench_host_loader (32 images) and bench_e2e
-                (96 rows of 1920x1200, 2 epochs, full frames and the RoI
-                cache) as subprocesses, ab_bf16_out's four arms and
-                ab_spn_styled's two (10 timed steps each) through their
-                CLIs' ``--arm`` path in this process; each JSON line's
+                at a small size, each through its CLI in this process:
+                bench_host_loader (32 images), bench_e2e (96 rows of
+                1920x1200, 2 epochs, full frames and the RoI cache),
+                ab_bf16_out's four arms and ab_spn_styled's two (10 timed
+                steps each, through the ``--arm`` path); each JSON line's
                 numbers finite and positive, and every A/B arm's B1 / B2
                 launches 5 / 6 a styled step in the plain lowering and 5 / 2
                 in the phase lowering;
@@ -154,7 +155,7 @@ result lines. Imports nothing of JAX.
 """
 from __future__ import annotations
 
-import importlib.util
+import importlib
 import json
 import logging
 import math
@@ -1915,20 +1916,31 @@ def ddp_setup(model: str, dev):
     return state, lambda st: step(st, batch, True)
 
 
-def ddp_rank(model: str, device: str):
-    """One rank of phase ddp on ``device``: one step of ddp_setup(model) on
-    its rows of the global batch, with its B1 / B2 launches printed. Returns
-    (rank 0's state after the step, the launches summed over the ranks, the
-    loss terms, step_times of DDP_REPS more steps)."""
+def ddp_ranks(device: str):
+    """One rank of phase ddp on ``device``: ``ddp_rank`` for each of
+    DDP_MODELS in turn, in one process group. Returns {model: its result}."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for model in DDP_MODELS:
+        out[model] = ddp_rank(model, torch.device(device))
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank(model: str, dev):
+    """One step of ddp_setup(model) on this rank's rows of the global batch
+    on ``dev``, with its B1 / B2 launches printed. Returns (rank 0's state
+    after the step, the launches summed over the ranks, the loss terms,
+    step_times of DDP_REPS more steps)."""
     import torch
     import torch.distributed as dist
 
     from speedplusbaseline_tpu_torch.ops import _build
     from speedplusbaseline_tpu_torch.parallel import rank_world
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(device)
     state, step = ddp_setup(model, dev)
     _build.reset_launches()
     losses = {k: float(v) for k, v in step(state).items()}
@@ -1982,9 +1994,10 @@ def ddp_nccl_rank():
 
 
 def phase_ddp(dev):
-    """Data parallelism on the one card: for each of DDP_MODELS, two ranks
-    over gloo with CUDA tensors take one f32 step on their halves of the
-    global batch, against one process's step on the whole batch; then one
+    """Data parallelism on the one card: for each of DDP_MODELS, one
+    process's f32 step on the whole global batch, then two ranks over gloo
+    with CUDA tensors, spawned once for the three models, each take the same
+    step on their halves of it, held to the one process's; then one
     process over NCCL at world 1 runs the collective path. Prints each
     step's ms with and without the collectives. Returns the ranks' B1 / B2
     launches, summed."""
@@ -1997,6 +2010,7 @@ def phase_ddp(dev):
     print("phase ddp: one card serves both ranks (cuda:0, gloo with CUDA tensors); NCCL "
           "between cards (N > 1) is not run by this phase and not shown", flush=True)
     total = dict.fromkeys(_build.launches, 0)
+    one = {}
     for model in DDP_MODELS:
         t0 = time.time()
         state, step = ddp_setup(model, dev)
@@ -2009,10 +2023,17 @@ def phase_ddp(dev):
         ref = {k: v.to("cpu", torch.float32, copy=True)
                for k, v in state.model.state_dict().items()}
         params = {k for k, _ in state.model.named_parameters()}
-        one_ms = step_times(state, step)
+        one[model] = (init, losses, one_launches, ref, params, step_times(state, step),
+                      time.time() - t0)
         del state, step
         torch.cuda.empty_cache()
-        got, launches, rank_losses, ms = spawn(ddp_rank, (model, str(dev)), DDP_WORLD, "gloo")
+    t0 = time.time()
+    ranks = spawn(ddp_ranks, (str(dev),), DDP_WORLD, "gloo")
+    print(f"phase ddp: {DDP_WORLD} ranks ran {', '.join(DDP_MODELS)} in one process group "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    for model in DDP_MODELS:
+        init, losses, one_launches, ref, params, one_ms, one_s = one[model]
+        got, launches, rank_losses, ms = ranks[model]
         launches = {k: int(v) for k, v in launches.items()}
         for k, v in launches.items():
             total[k] += v
@@ -2033,7 +2054,7 @@ def phase_ddp(dev):
               f"{launches} against one process's {one_launches}; a step's device busy "
               f"time {ms[0]:.2f} ms on rank 0 over gloo, {one_ms[0]:.2f} ms in one process "
               f"(torch.profiler), between CUDA events {ms[1]:.2f} and {one_ms[1]:.2f} ms "
-              f"({DDP_REPS} steps each); {time.time() - t0:.1f} s", flush=True)
+              f"({DDP_REPS} steps each); one process {one_s:.1f} s", flush=True)
         if not all(np.isfinite(list(rank_losses.values()))):
             fail(f"ddp: {model}: non-finite loss {rank_losses}")
         if worst > TOL_DDP or worst_stat > TOL_DDP or rel > DDP_REL:
@@ -2236,13 +2257,15 @@ def phase_quality(dev):
     2 source-only epochs, 1 DANN epoch); the style-aug A/B's
     arm C on that root (2 epochs, 4 styled steps) and its sunlamp scores on
     48 frames; the transfer A/B on the DANN A/B's arm A as the donor (2
-    epochs each arm; the boot arm runs the train CLI in this process): the
+    epochs each arm): the
     boot arm logs the load from its assets directory and the scratch arm
     none, and the boot arm starts from the donor's trunk bit for bit;
     dump_spn_convs of a seeded SPN read back by
-    maybe_load_pretrained bit for bit. The drivers' CLIs are subprocesses:
-    their launch counts come through SPEEDPLUS_LAUNCH_LOG. Returns the
-    phase's launches; B1 and B2 must have launched on arm C."""
+    maybe_load_pretrained bit for bit. The drivers' CLI arms run in this
+    process (``arm_in_process`` in place of ``common.run_arm``), their
+    launches counted by ``_build.launches`` around each; the memorization
+    run's come through SPEEDPLUS_LAUNCH_LOG. Returns the phase's launches;
+    B1 and B2 must have launched on arm C."""
     import torch
 
     from speedplusbaseline_tpu_torch import train
@@ -2271,6 +2294,38 @@ def phase_quality(dev):
                  "--test_every", str(MEMO_TEST_EVERY), "--lr_decay_step", "50", "--test_csv",
                  "train.csv", "--save_epoch", str(MEMO_EPOCHS)] + small,
                 stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        xroot = os.path.join(tmp, "xfer")
+        boot_assets = os.path.join(xroot, "boot_assets")
+        run_arm, arms, boot_start = common.run_arm, [], []
+
+        def arm_in_process(cli, args, timeout_s=None, env=None):
+            """A driver's CLI arm (``common.run_arm``) in this process: ``env``
+            is its environment for the call; returns its wall and records its
+            B1 / B2 launches in ``arms``. The transfer A/B's boot arm runs
+            under _Capture, which reads its model before the first step."""
+            module = importlib.import_module(f"speedplusbaseline_tpu_torch.{cli}")
+            saved_env, env = dict(os.environ), dict(os.environ if env is None else env)
+            t0, before = time.time(), dict(_build.launches)
+            os.environ.clear()
+            os.environ.update(env)
+            try:
+                if cli == "train" and env.get("SPEEDPLUS_ASSETS_DIR") == boot_assets:
+                    with _Capture(train) as seen:
+                        module.main(list(args))
+                    boot_start.append(seen.model_at_start)
+                else:
+                    module.main(list(args))
+                torch.cuda.synchronize()
+            finally:
+                os.environ.clear()
+                os.environ.update(saved_env)
+            arms.append((cli, list(args), {k: _build.launches[k] - before[k] for k in before}))
+            torch.cuda.empty_cache()
+            wall = time.time() - t0
+            print(f"\n[{cli}] arm finished in {wall:.1f} s (in this process)", flush=True)
+            return wall
+
+        common.run_arm = arm_in_process
         try:
             t0 = time.time()
             ab = os.path.join(tmp, "ab")
@@ -2278,8 +2333,7 @@ def phase_quality(dev):
                 ["--root", ab, "--n_src", "96", "--n_tgt", "96", "--epochs_src", "2",
                  "--epochs_dann", "1", "--test_every", "1"] + small))
             print(f"phase quality: DANN A/B {time.time() - t0:.1f} s", flush=True)
-            with open(log) as f:
-                before_c = len(f.readlines())
+            before_c = len(arms)
             t0 = time.time()
             n_photo, styleaug_ab_run.N_PHOTO = styleaug_ab_run.N_PHOTO, 48
             try:
@@ -2287,44 +2341,18 @@ def phase_quality(dev):
                     ["--root", ab, "--epochs", "2", "--test_every", "1"] + small))
             finally:
                 styleaug_ab_run.N_PHOTO = n_photo
-            with open(log) as f:
-                arm_c = [json.loads(x) for x in f.readlines()[before_c:]
-                         if "--randomize_texture" in json.loads(x)["argv"]]
-            if len(arm_c) != 1 or not all(arm_c[0]["launches"].values()):
+            arm_c = [a for a in arms[before_c:] if "--randomize_texture" in a[1]]
+            if len(arm_c) != 1 or not all(arm_c[0][2].values()):
                 fail(f"quality: arm C's kernel launches {arm_c}: B1 and B2 must launch")
-            print(f"phase quality: style-aug arm C launched {arm_c[0]['launches']}; "
+            print(f"phase quality: style-aug arm C launched {arm_c[0][2]}; "
                   f"{time.time() - t0:.1f} s", flush=True)
 
             t0 = time.time()
-            xroot, donor = os.path.join(tmp, "xfer"), os.path.join(ab, "save_src",
-                                                                     "model_best.pt")
-            boot_assets = os.path.join(xroot, "boot_assets")
-            run_arm = common.run_arm
-
-            def boot_in_process(cli, args, timeout_s=None, env=None):
-                """The boot arm's train CLI in this process, where _Capture
-                reads its model before the first step; other arms as usual."""
-                if cli != "train" or (env or {}).get("SPEEDPLUS_ASSETS_DIR") != boot_assets:
-                    return run_arm(cli, args, timeout_s, env)
-                os.environ["SPEEDPLUS_ASSETS_DIR"] = boot_assets
-                try:
-                    with _Capture(train) as seen:
-                        train.main(list(args))
-                finally:
-                    os.environ.pop("SPEEDPLUS_ASSETS_DIR", None)
-                print("", flush=True)
-                boot_start.append(seen.model_at_start)
-                return 0.0
-
-            boot_start = []
-            common.run_arm = boot_in_process
-            try:
-                with _Stderr(os.path.join(tmp, "xfer.err")) as err:
-                    check_summary("krn_transfer_run", krn_transfer_run.main(
-                        ["--root", xroot, "--donor", donor, "--epochs", "2", "--test_every",
-                         "1"] + small))
-            finally:
-                common.run_arm = run_arm
+            donor = os.path.join(ab, "save_src", "model_best.pt")
+            with _Stderr(os.path.join(tmp, "xfer.err")) as err:
+                check_summary("krn_transfer_run", krn_transfer_run.main(
+                    ["--root", xroot, "--donor", donor, "--epochs", "2", "--test_every",
+                     "1"] + small))
             loads = [x for x in err.text.splitlines()
                      if "MobileNetV2 ImageNet backbone loaded from" in x]
             if len(loads) != 1 or not loads[0].endswith(
@@ -2378,6 +2406,7 @@ def phase_quality(dev):
                   f"{[round(v, 4) for v in speeds]} at epochs {sorted(curve)}: best "
                   f"{min(speeds[1:]):.4f} < half the first {speeds[0]:.4f}", flush=True)
         finally:
+            common.run_arm = run_arm
             if memo.poll() is None:
                 os.killpg(memo.pid, signal.SIGKILL)
                 memo.wait()
@@ -2388,8 +2417,10 @@ def phase_quality(dev):
                     os.environ[k] = v
         with open(log) as f:
             runs = [json.loads(x) for x in f]
-    launches = {k: sum(r["launches"].get(k, 0) for r in runs) for k in _build.launches}
-    print(f"phase quality: {len(runs)} CLI processes, launches {launches}, "
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs) + sum(a[2][k] for a in arms)
+                for k in _build.launches}
+    print(f"phase quality: {len(arms)} CLI arms in this process, {len(runs)} CLI processes "
+          f"(the memorization run), launches {launches}, "
           f"{time.time() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -2638,91 +2669,76 @@ def positive_numbers(what: str, record: dict, keys, phase: str = "perf") -> None
 
 def phase_perf(card: str):
     """The measuring modules (speedplusbaseline_tpu_torch/perf/) on the card
-    at a small size: bench_host_loader over PERF_LOADER_IMAGES images and
-    bench_e2e over PERF_E2E_IMAGES rows for PERF_E2E_EPOCHS epochs, both
-    modes, each as a subprocess, on a root that write_dataset filled with
-    frames of phase main's kind (the module's own renderer, which draws each
-    frame's markers at full resolution and takes most of the module's time
-    at its defaults, runs in tests/test_torch_perf.py); then ab_bf16_out's
-    four arms and ab_spn_styled's two with --n PERF_AB_STEPS, each through
-    its CLI's in-process ``--arm`` path in this process (the path each arm's
-    child takes under the CLI's parent; the parent's ``run_child`` is phase
-    bench's). Each JSON line must hold its keys with finite positive
-    numbers and the card line. Every A/B arm launches B1 / B2
+    at a small size, each through its CLI's ``main`` in this process:
+    bench_host_loader over PERF_LOADER_IMAGES images; bench_e2e over
+    PERF_E2E_IMAGES rows for PERF_E2E_EPOCHS epochs, both modes, on a root
+    that write_dataset filled with frames of phase main's kind (the module's
+    own renderer, which draws each frame's markers at full resolution and
+    takes most of the module's time at its defaults, runs in
+    tests/test_torch_perf.py); ab_bf16_out's four arms and ab_spn_styled's
+    two with --n PERF_AB_STEPS, each through its CLI's ``--arm`` path (the
+    path each arm's child takes under the CLI's parent; the parent's
+    ``run_child`` is phase bench's). Each JSON line must hold its keys with
+    finite positive numbers and the card line. Counted by
+    ``_build.launches`` around each call, every A/B arm launches B1 / B2
     PERF_LAUNCHES times a styled step of its lowering (plain: 5 / 6, phase:
-    5 / 2), counted by ``_build.launches`` around the arm; the two benches
-    launch neither, through SPEEDPLUS_LAUNCH_LOG. Returns the phase's
+    5 / 2), and the two benches launch neither. Returns the phase's
     launches."""
     import torch
 
     from speedplusbaseline_tpu_torch.ops import _build
-    from speedplusbaseline_tpu_torch.perf import ab_bf16_out, ab_spn_styled
+    from speedplusbaseline_tpu_torch.perf import (ab_bf16_out, ab_spn_styled, bench_e2e,
+                                                  bench_host_loader)
 
-    here = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.time()
     launches = {"instance_norm_film": 0, "ghiasi_resblock": 0}
+
+    def run(module, argv):
+        """``module.main(argv)``'s record and its B1 / B2 launches."""
+        t0, before = time.time(), dict(_build.launches)
+        record = module.main(argv)
+        n = {k: _build.launches[k] - before[k] for k in before}
+        for k, v in n.items():
+            launches[k] += v
+        if record.get("card") != card:
+            fail(f"perf: {module.__name__} {argv}'s card {record.get('card')!r}, not {card!r}")
+        print(f"phase perf: {module.__name__.rsplit('.', 1)[1]} {' '.join(argv)} "
+              f"({time.time() - t0:.1f} s): launches {n}", flush=True)
+        return record, n
+
+    loader, n = run(bench_host_loader, [str(PERF_LOADER_IMAGES)])
+    positive_numbers("bench_host_loader", loader, (
+        "python_img_s_per_worker", "cached_img_s_per_worker", "dataloader_img_s",
+        "host_cores"))
+    if (loader["native_img_s_per_worker"] is None) == NATIVE_ON_CARD:
+        fail(f"perf: bench_host_loader's native rate {loader['native_img_s_per_worker']} "
+             f"with NATIVE_ON_CARD {NATIVE_ON_CARD}")
+    if any(n.values()):
+        fail(f"perf: bench_host_loader launched {n}; only the A/B arms restyle")
+
     with tempfile.TemporaryDirectory() as tmp:
-        log = os.path.join(tmp, "launches.jsonl")
-        env = dict(os.environ, SPEEDPLUS_LAUNCH_LOG=log)
-
-        def run(module: str, *args: str) -> dict:
-            t0 = time.time()
-            cmd = [sys.executable, "-m", f"speedplusbaseline_tpu_torch.perf.{module}", *args]
-            out = subprocess.run(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True, timeout=600)
-            lines = out.stdout.splitlines()
-            if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
-                fail(f"perf: {' '.join(cmd[2:])} exited with {out.returncode}:\n"
-                     + "\n".join(lines[-40:]))
-            print(f"phase perf: {module} {' '.join(args)} ({time.time() - t0:.1f} s): "
-                  f"{lines[-1]}", flush=True)
-            return json.loads(lines[-1])
-
-        loader = run("bench_host_loader", str(PERF_LOADER_IMAGES))
-        positive_numbers("bench_host_loader", loader, (
-            "python_img_s_per_worker", "cached_img_s_per_worker", "dataloader_img_s",
-            "host_cores"))
-        if (loader["native_img_s_per_worker"] is None) == NATIVE_ON_CARD:
-            fail(f"perf: bench_host_loader's native rate {loader['native_img_s_per_worker']} "
-                 f"with NATIVE_ON_CARD {NATIVE_ON_CARD}")
-
-        root = os.path.join(tmp, "e2e")
-        write_dataset(root, "krn", PERF_E2E_IMAGES, n_images=PERF_E2E_IMAGES)
-        e2e = run("bench_e2e", str(PERF_E2E_IMAGES), str(PERF_E2E_EPOCHS), "both", root)
-        positive_numbers("bench_e2e", e2e, ("e2e_from_disk_img_s", "e2e_cached_img_s",
-                                            "cache_build_s", "host_cores", "num_workers"))
-        if e2e["native"] != NATIVE_ON_CARD:
-            fail(f"perf: bench_e2e ran the native core: {e2e['native']}")
-        with open(log) as f:
-            for entry in map(json.loads, f):
-                if any(entry["launches"].values()):
-                    fail(f"perf: {entry['argv']} launched {entry['launches']}; only the A/B "
-                         "arms restyle")
+        write_dataset(tmp, "krn", PERF_E2E_IMAGES, n_images=PERF_E2E_IMAGES)
+        e2e, n = run(bench_e2e, [str(PERF_E2E_IMAGES), str(PERF_E2E_EPOCHS), "both", tmp])
+    positive_numbers("bench_e2e", e2e, ("e2e_from_disk_img_s", "e2e_cached_img_s",
+                                        "cache_build_s", "host_cores", "num_workers"))
+    if e2e["native"] != NATIVE_ON_CARD:
+        fail(f"perf: bench_e2e ran the native core: {e2e['native']}")
+    if any(n.values()):
+        fail(f"perf: bench_e2e launched {n}; only the A/B arms restyle")
 
     arms = {}
     for module in (ab_bf16_out, ab_spn_styled):
         name = module.__name__.rsplit(".", 1)[1]
         for arm in module.ARMS:
-            t0, before = time.time(), dict(_build.launches)
-            record = module.main(["--arm", arm, "--n", str(PERF_AB_STEPS)])
-            n = {k: _build.launches[k] - before[k] for k in before}
+            record, n = run(module, ["--arm", arm, "--n", str(PERF_AB_STEPS)])
             positive_numbers(f"{name} {arm}", record, ("styled_step_ms", "device_busy_ms",
                                                        "steps"))
-            if record.get("card") != card:
-                fail(f"perf: {name} {arm}'s card {record.get('card')!r}, not {card!r}")
             want = {k: v * record["steps"] for k, v in PERF_LAUNCHES[record["lowering"]].items()}
             if n != want:
                 fail(f"perf: arm {arm} ({record['lowering']} lowering, {record['steps']} "
                      f"styled steps) launched {n}, wanted {want}")
-            for k, v in n.items():
-                launches[k] += v
             arms[arm] = record
-            print(f"phase perf: {name} --arm {arm} ({time.time() - t0:.1f} s, in this "
-                  f"process): launches {n}", flush=True)
     torch.cuda.empty_cache()
-    for what, record in (("bench_host_loader", loader), ("bench_e2e", e2e)):
-        if record.get("card") != card:
-            fail(f"perf: {what}'s card {record.get('card')!r}, not {card!r}")
     print(f"phase perf: arms (styled step ms on the host clock, device busy ms) "
           + ", ".join(f"{a} {r['styled_step_ms']:.2f} / {r['device_busy_ms']:.2f}"
                       for a, r in arms.items())
@@ -2971,8 +2987,7 @@ def main() -> None:
         return out
 
     card = timed("device", card_line)
-    print(f"phase device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-          f"tensorflow {'importable' if importlib.util.find_spec('tensorflow') else 'absent'}",
+    print(f"phase device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     timed("build", phase_build)
     report = timed("kernels", phase_kernels, dev)
