@@ -1,8 +1,8 @@
 """Where the bf16 Ghiasi generator's error on flax-init weights comes from, on
 the card and on the host's CPU (not a test module; imports no JAX):
 
-    python tests/ghiasi_bf16_probe.py            # on a machine with a GPU
-    python tests/ghiasi_bf16_probe.py --no_cuda  # the CPU's lines alone
+    python tests/torch_ghiasi_bf16_probe.py            # on a machine with a GPU
+    python tests/torch_ghiasi_bf16_probe.py --no_cuda  # the CPU's lines alone
 
 For each seed s of ``chip_smoke.JAX_GHIASI_BF16`` and two kinds of weights,
 ``numpy`` (``chip_smoke.flax_init_ghiasi(s)``, the same in every torch
