@@ -78,7 +78,8 @@ Phases, each printing its own lines:
                 steps) from the cache with its validation and the test CLI,
                 as in phase main; every cached eval crop against the
                 full-frame one; a 2-epoch run with --profile_dir whose trace
-                must name B1's and B2's device kernels;
+                must name B1's and B2's device kernels and each span of the
+                styled KRN training path (KRN_STYLED_SPANS);
  12. resident, eval, spn_eval -- per model, the styled and plain train steps
                 on a resident batch (host clock, and device busy time by
                 torch.profiler), and the eval step (forward, geometry) as
@@ -155,6 +156,7 @@ result lines. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import logging
@@ -291,6 +293,10 @@ PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6},
                  "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2}}
 # Device kernels of B1 and B2 by name, as a profiler trace holds them.
 B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
+# The program's spans (io_utils/spans.py) a styled KRN training epoch records.
+KRN_STYLED_SPANS = ("speedplus.step", "speedplus.augment", "speedplus.restyle",
+                    "speedplus.forward", "speedplus.backward", "speedplus.clip",
+                    "speedplus.optimizer", "speedplus.readback", "speedplus.loader_wait")
 
 
 def fail(msg: str) -> None:
@@ -1164,7 +1170,7 @@ def phase_data(dev, main_times):
     KRN trainer from the cache (through the native core where NATIVE_ON_CARD)
     with its validation and the test CLI; the cached eval crops against the
     full-frame ones; a 2-epoch run with --profile_dir whose trace must name
-    B1 and B2. Returns the trainer's kernel launches."""
+    B1, B2 and KRN_STYLED_SPANS. Returns the trainer's kernel launches."""
     import cv2
     import numpy as np
     import torch
@@ -1296,6 +1302,14 @@ def phase_data(dev, main_times):
               f"run {dict(_build.launches)}", flush=True)
         if b1 == 0 or b2 == 0:
             fail("data: the profiler's trace names no B1 or no B2 device kernel")
+        spans = collections.Counter(e["name"] for e in events
+                                    if e.get("cat") == "user_annotation"
+                                    and e["name"].startswith("speedplus."))
+        print(f"phase data: --profile_dir, the program's spans {dict(sorted(spans.items()))}",
+              flush=True)
+        missing = [name for name in KRN_STYLED_SPANS if not spans[name]]
+        if missing:
+            fail(f"data: the profiler's trace holds none of the spans {missing}")
     return launches
 
 

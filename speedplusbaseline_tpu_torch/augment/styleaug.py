@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..convert import flax_to_state_dict, read_flax_msgpack
+from ..io_utils.spans import span
 from ..models.ghiasi import EMBED_DIM, Ghiasi
 
 
@@ -82,6 +83,7 @@ class StyleAugmentor:
                  z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Restyle (B, 3, H, W) in [0, 1]; returns the generator's dtype (f32
         with ``f32_out``)."""
-        emb = self.sample_embedding(x.shape[0], generator, z)
-        emb = self.alpha * emb + (1.0 - self.alpha) * self.base
-        return self.ghiasi(x, emb)
+        with span("speedplus.restyle"):
+            emb = self.sample_embedding(x.shape[0], generator, z)
+            emb = self.alpha * emb + (1.0 - self.alpha) * self.base
+            return self.ghiasi(x, emb)

@@ -1,6 +1,7 @@
 """Epoch loops (counterpart of ``speedplusbaseline_tpu/engine/loops.py::
 train_epoch`` and ``run_validation``): host-side style gate, meters,
-progress bar, TB scalars, per-image dumps."""
+progress bar, TB scalars, per-image dumps, and the loop's profiler spans
+(``io_utils/spans.py``)."""
 from __future__ import annotations
 
 import os
@@ -12,7 +13,10 @@ import numpy as np
 import torch
 
 from ..io_utils.meters import AverageMeter, report_progress
+from ..io_utils.spans import span
 from ..parallel.mesh import global_rows, is_main
+
+_END = object()
 
 
 def _meter_names(model_name: str, dann: bool = False):
@@ -29,6 +33,17 @@ def style_gate(seed: int, epoch: int) -> np.random.Generator:
     (seed, epoch): both frameworks restyle the same steps."""
     return np.random.Generator(np.random.Philox(
         key=np.uint64([(seed << 20) + epoch, 0x57E1E])))
+
+
+def _waited(batches):
+    """``batches``, each fetch inside a ``speedplus.loader_wait`` span."""
+    it = iter(batches)
+    while True:
+        with span("speedplus.loader_wait"):
+            batch = next(it, _END)
+        if batch is _END:
+            return
+        yield batch
 
 
 def train_epoch(epoch, cfg, state, train_step, loader, writer,
@@ -63,27 +78,31 @@ def train_epoch(epoch, cfg, state, train_step, loader, writer,
         # Read step i's losses after step i+1 was enqueued, so the host's
         # readback waits on work already done instead of stalling the queue.
         idx, B, sm, ms, was_styled = pending
-        vals = {k: float(v) for k, v in sm.items()}
-        time_meter.update(ms, B)
-        for name in names:
-            meters[name].update(vals[name], B)
-        records.append({"step": idx, "styled": was_styled, "ms": ms, **vals})
-        report_progress(epoch=epoch, lr=lr_value, epoch_iter=idx + 1,
-                        epoch_size=n_batches, time=time_meter, is_train=True,
-                        **meters)
+        with span("speedplus.readback"):
+            vals = {k: float(v) for k, v in sm.items()}
+        with span("speedplus.progress"):
+            time_meter.update(ms, B)
+            for name in names:
+                meters[name].update(vals[name], B)
+            records.append({"step": idx, "styled": was_styled, "ms": ms, **vals})
+            report_progress(epoch=epoch, lr=lr_value, epoch_iter=idx + 1,
+                            epoch_size=n_batches, time=time_meter, is_train=True,
+                            **meters)
 
     pending = None
     start = time.time()
-    for idx, batch in enumerate(batches):
+    for idx, batch in enumerate(_waited(batches)):
         if dann_loaders is not None:
             source_batch, target_batch = batch
             B, step_styled = source_batch["image"].shape[0], False
-            sm = train_step(state, source_batch, target_batch,
-                            np.float32(dann_alpha_fn(idx, n_batches)))
+            alpha = np.float32(dann_alpha_fn(idx, n_batches))
+            with span("speedplus.step"):
+                sm = train_step(state, source_batch, target_batch, alpha)
         else:
             B = batch["image"].shape[0]
             step_styled = styled and gate.random() < cfg.texture_ratio
-            sm = train_step(state, batch, step_styled)
+            with span("speedplus.step"):
+                sm = train_step(state, batch, step_styled)
         # Timestamp BEFORE flushing the lagged readback so step i's recorded
         # wall-time never includes step i-1's host fetch.
         now = time.time()
@@ -122,27 +141,29 @@ def run_validation(epoch, cfg, eval_step, model, loader, writer):
 
     n_batches = len(loader)
     start = time.time()
-    for idx, batch in enumerate(loader):
-        out = eval_step(model, batch)
-        vals = torch.stack([out[k].float() for k in _EVAL_KEYS])
-        if "valid" in batch:
-            vals = global_rows(torch.cat([vals, batch["valid"].view(1, -1).float()]).T).T
-            vals = vals[:-1, vals[-1] > 0.5]
-        out = dict(zip(_EVAL_KEYS, vals.cpu().numpy()))
+    for idx, batch in enumerate(_waited(loader)):
+        with span("speedplus.eval_step"):
+            out = eval_step(model, batch)
+        with span("speedplus.readback"):
+            vals = torch.stack([out[k].float() for k in _EVAL_KEYS])
+            if "valid" in batch:
+                vals = global_rows(torch.cat([vals, batch["valid"].view(1, -1).float()]).T).T
+                vals = vals[:-1, vals[-1] > 0.5]
+            out = dict(zip(_EVAL_KEYS, vals.cpu().numpy()))
         B = vals.shape[1]
-        for k, v in dumps.items():
-            v.extend(out[k].tolist())
-
-        time_meter.update((time.time() - start) * 1000, B)
-        meters["eR"].update(float(np.mean(out["err_q"])), B)
-        meters["eT"].update(float(np.mean(out["err_t"])), B)
-        meters["speed (raw)"].update(float(np.mean(out["speed_raw"])), B)
-        meters["speed (thr)"].update(float(np.mean(out["speed_mod"])), B)
-        acc_meter.update(float(np.mean(out["acc"])) * 100, B)
-        report_progress(epoch=epoch, lr=float("nan"), epoch_iter=idx + 1,
-                        epoch_size=n_batches, time=time_meter, is_train=False,
-                        eT=meters["eT"], eR=meters["eR"], speed=meters["speed (raw)"],
-                        acc=acc_meter)
+        with span("speedplus.progress"):
+            for k, v in dumps.items():
+                v.extend(out[k].tolist())
+            time_meter.update((time.time() - start) * 1000, B)
+            meters["eR"].update(float(np.mean(out["err_q"])), B)
+            meters["eT"].update(float(np.mean(out["err_t"])), B)
+            meters["speed (raw)"].update(float(np.mean(out["speed_raw"])), B)
+            meters["speed (thr)"].update(float(np.mean(out["speed_mod"])), B)
+            acc_meter.update(float(np.mean(out["acc"])) * 100, B)
+            report_progress(epoch=epoch, lr=float("nan"), epoch_iter=idx + 1,
+                            epoch_size=n_batches, time=time_meter, is_train=False,
+                            eT=meters["eT"], eR=meters["eR"], speed=meters["speed (raw)"],
+                            acc=acc_meter)
         start = time.time()
 
     if not is_main():

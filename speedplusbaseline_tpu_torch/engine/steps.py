@@ -47,6 +47,7 @@ import torch
 from ..augment.photometric import apply_augment, draw_augment
 from ..geometry import (compute_position_spn_batched, f32_math, keypoints_to_pose,
                         weighted_mean_quaternion)
+from ..io_utils.spans import span
 from ..metrics import speed_score_batched
 from ..models.ghiasi import EMBED_DIM
 from ..models.krn import krn_loss
@@ -74,15 +75,17 @@ def krn_step(state: TrainState, images: torch.Tensor, keypts: torch.Tensor,
     """One KRN step on given aug draws (and optional style normals ``z``).
     ``style_aug=None`` is the plain step. Returns the loss terms (device
     scalars, detached)."""
-    x, kp = apply_augment(images_to_float(images), keypts, draws)
+    with span("speedplus.augment"):
+        x, kp = apply_augment(images_to_float(images), keypts, draws)
     if style_aug is not None:
         x = style_aug(x, generator, z).to(x.dtype)
 
-    model = state.model
-    model.train()
-    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
-        xc, yc = model(x)
-    loss, sm = krn_loss(*(global_rows(t) for t in (xc.float(), yc.float(), kp)))
+    with span("speedplus.forward"):
+        model = state.model
+        model.train()
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
+            xc, yc = model(x)
+        loss, sm = krn_loss(*(global_rows(t) for t in (xc.float(), yc.float(), kp)))
     return _update(state, "krn", loss, sm)
 
 
@@ -90,12 +93,16 @@ def _update(state: TrainState, model_name: str, loss, sm, dann: bool = False,
             clip: bool = True) -> Dict[str, torch.Tensor]:
     """Backward, the sum of the gradients over the ranks, the model's clip
     (unless ``clip`` is false), the optimizer step; the detached loss terms."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    all_reduce_grads(state.model.parameters())
+    with span("speedplus.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("speedplus.all_reduce"):
+        all_reduce_grads(state.model.parameters())
     if clip:
-        clip_gradients(model_name, state.model.parameters(), dann)
-    state.optimizer.step()
+        with span("speedplus.clip"):
+            clip_gradients(model_name, state.model.parameters(), dann)
+    with span("speedplus.optimizer"):
+        state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in sm.items()}
 
@@ -126,8 +133,9 @@ def make_krn_train_step(cfg, device: torch.device, style_aug=None):
     def train_step(state: TrainState, batch, styled: bool):
         gen.manual_seed((cfg.seed << 32) + state.step)
         images = batch["image"]
-        draws = _draws(gen, images)
-        z = _style_normals(gen, images.shape[0]) if styled else None
+        with span("speedplus.augment"):
+            draws = _draws(gen, images)
+            z = _style_normals(gen, images.shape[0]) if styled else None
         return krn_step(state, images, batch["keypts"], draws, cfg.fp16,
                         style_aug if styled else None, gen, z)
 
@@ -141,20 +149,22 @@ def dann_step(state: TrainState, src_images: torch.Tensor, keypts: torch.Tensor,
     """One DANN step on given aug draws of both streams; ``alpha`` scales
     the reversed gradient. Returns {loss_pose, loss_source, loss_target}
     (device scalars, detached)."""
-    xs, kp = apply_augment(images_to_float(src_images), keypts, src_draws)
-    dummy = keypts.new_zeros((tgt_images.shape[0], *keypts.shape[1:]))
-    xt, _ = apply_augment(images_to_float(tgt_images), dummy, tgt_draws)
+    with span("speedplus.augment"):
+        xs, kp = apply_augment(images_to_float(src_images), keypts, src_draws)
+        dummy = keypts.new_zeros((tgt_images.shape[0], *keypts.shape[1:]))
+        xt, _ = apply_augment(images_to_float(tgt_images), dummy, tgt_draws)
 
-    model = state.model
-    model.train()
-    with torch.autocast(xs.device.type, dtype=torch.bfloat16, enabled=fp16):
-        (xc, yc), dom_src = model(xs, alpha)
-        _, dom_tgt = model(xt, alpha)
-    xc, yc, kp, dom_src, dom_tgt = (global_rows(t) for t in (xc.float(), yc.float(), kp,
-                                                             dom_src, dom_tgt))
-    loss_pose, _ = krn_loss(xc, yc, kp)
-    loss_source = bce_with_logits(dom_src, torch.ones_like(dom_src))
-    loss_target = bce_with_logits(dom_tgt, torch.zeros_like(dom_tgt))
+    with span("speedplus.forward"):
+        model = state.model
+        model.train()
+        with torch.autocast(xs.device.type, dtype=torch.bfloat16, enabled=fp16):
+            (xc, yc), dom_src = model(xs, alpha)
+            _, dom_tgt = model(xt, alpha)
+        xc, yc, kp, dom_src, dom_tgt = (global_rows(t) for t in (xc.float(), yc.float(), kp,
+                                                                 dom_src, dom_tgt))
+        loss_pose, _ = krn_loss(xc, yc, kp)
+        loss_source = bce_with_logits(dom_src, torch.ones_like(dom_src))
+        loss_target = bce_with_logits(dom_tgt, torch.zeros_like(dom_tgt))
     sm = {"loss_pose": loss_pose, "loss_source": loss_source, "loss_target": loss_target}
     return _update(state, "krn", loss_pose + loss_source + loss_target, sm, dann=True)
 
@@ -177,8 +187,10 @@ def make_dann_train_step(cfg, device: torch.device):
         src_gen.manual_seed(seed)
         tgt_gen.manual_seed(seed + _TARGET_STREAM)
         src, tgt = source_batch["image"], target_batch["image"]
-        return dann_step(state, src, source_batch["keypts"], _draws(src_gen, src), tgt,
-                         _draws(tgt_gen, tgt), alpha, cfg.fp16)
+        with span("speedplus.augment"):
+            src_draws, tgt_draws = _draws(src_gen, src), _draws(tgt_gen, tgt)
+        return dann_step(state, src, source_batch["keypts"], src_draws, tgt, tgt_draws, alpha,
+                         cfg.fp16)
 
     return train_step
 
@@ -195,13 +207,14 @@ def spn_step(state: TrainState, images: torch.Tensor, y_classes: torch.Tensor,
     x = images_to_float(images)
     if style_aug is not None:
         x = style_aug(x, generator, z).to(x.dtype)
-    model = state.model
-    model.train()
-    total, rows = global_batch(x.shape[0])
-    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
-        classes, weights = model(x, generator, (rows.start or 0, total))
-    loss, sm = spn_loss(*(global_rows(t.float()) for t in (classes, weights, y_classes,
-                                                             y_weights)))
+    with span("speedplus.forward"):
+        model = state.model
+        model.train()
+        total, rows = global_batch(x.shape[0])
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=fp16):
+            classes, weights = model(x, generator, (rows.start or 0, total))
+        loss, sm = spn_loss(*(global_rows(t.float()) for t in (classes, weights, y_classes,
+                                                                 y_weights)))
     return _update(state, "spn", loss, sm, clip=clip)
 
 
