@@ -36,7 +36,7 @@ import torch
 
 from ..config import check_ported, parse_cfg, resolve_device
 from ..data.csv_dataset import SPNDataset
-from ..engine.optim import build_optimizer
+from ..engine.optim import adam, build_optimizer
 from ..engine.state import TrainState
 from ..engine.steps import make_spn_train_step
 from ..models.build import get_model
@@ -59,9 +59,8 @@ def _pop(argv: List[str], flag: str, default: int) -> int:
 def no_clip_optimizer(cfg, params) -> torch.optim.Optimizer:
     """The JAX probe's ``--no_clip`` chain: scale_by_adam(b1=momentum,
     b2=0.999, eps=1e-8), add_decayed_weights(weight_decay), the held lr;
-    torch's AdamW is that chain."""
-    return torch.optim.AdamW(params, lr=cfg.lr, betas=(cfg.momentum, 0.999), eps=1e-8,
-                             weight_decay=cfg.weight_decay)
+    torch's AdamW is that chain, built as the trainer builds it."""
+    return adam(torch.optim.AdamW, params, cfg.lr, cfg.momentum, cfg.weight_decay)
 
 
 def load_batches(cfg, n_batches: int) -> List[dict]:

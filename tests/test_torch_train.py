@@ -4,6 +4,7 @@ the train CLI end to end on the CPU.
 """
 import json
 import os
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -68,6 +69,103 @@ def test_optimizer_matches_optax(name):
     for k in init:
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
                                    rtol=1e-5, atol=1e-6)
+
+
+def _adam_run(opt, params, grads, schedule, steps):
+    """``steps`` updates of ``opt`` on the given grads, under ``schedule``."""
+    for step in steps:
+        set_lr(opt, schedule(step))
+        for p, g in zip(params, grads[step]):
+            p.grad = None if g is None else g.clone()
+        opt.step()
+
+
+def _adam_case(dtype):
+    """Three parameters and six steps of grads; the second parameter has
+    no grad on step 2."""
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(shape, generator=gen, dtype=dtype) for shape in ((4, 3), (5,), (2, 2, 3))]
+    grads = [[torch.randn(t.shape, generator=gen, dtype=dtype) * (3.0 if step % 2 else 0.1)
+              for t in init] for step in range(6)]
+    grads[2][1] = None
+    return init, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_fused_adam_matches_single_tensor_update(name, dtype):
+    """build_optimizer's Adam and AdamW take torch's fused update on the CPU
+    and give the single-tensor update's parameters and moments over six
+    steps of a StepLR decay; 1e-6 relative."""
+    cfg = default_cfg(optimizer=name, lr=0.01, momentum=0.9, weight_decay=0.05,
+                      lr_decay_alpha=0.5, lr_decay_step=1)
+    schedule = step_lr_schedule(cfg.lr, cfg.lr_decay_alpha, cfg.lr_decay_step, 2)
+    init, grads = _adam_case(dtype)
+    ours = [torch.nn.Parameter(t.clone()) for t in init]
+    ref = [torch.nn.Parameter(t.clone()) for t in init]
+    opt = build_optimizer(cfg, ours)
+    assert type(opt) is {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW}[name]
+    assert opt.defaults["fused"] is True and opt.defaults["foreach"] is None
+    assert opt.param_groups[0]["fused"] is True
+    ref_opt = type(opt)(ref, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.05,
+                        foreach=False)
+    _adam_run(opt, ours, grads, schedule, range(6))
+    _adam_run(ref_opt, ref, grads, schedule, range(6))
+    for p, q in zip(ours, ref):
+        torch.testing.assert_close(p.detach(), q.detach(), rtol=1e-6, atol=1e-9)
+        for key in ("exp_avg", "exp_avg_sq"):
+            torch.testing.assert_close(opt.state[p][key], ref_opt.state[q][key],
+                                       rtol=1e-6, atol=1e-12)
+        assert float(opt.state[p]["step"]) == float(ref_opt.state[q]["step"])
+    assert float(opt.state[ours[1]]["step"]) == 5
+
+
+@pytest.mark.parametrize("name,cls", [("sgd", torch.optim.SGD), ("rmsprop", torch.optim.RMSprop)])
+def test_sgd_and_rmsprop_keep_their_update(name, cls):
+    opt = build_optimizer(default_cfg(optimizer=name), [torch.nn.Parameter(torch.zeros(3))])
+    assert type(opt) is cls
+    assert opt.defaults["foreach"] is None and not opt.defaults.get("fused")
+
+
+@pytest.mark.parametrize("writer", ["foreach", "fused"])
+def test_resume_across_update_paths(writer):
+    """A state written after three AdamW steps by one update path and loaded
+    into the other continues as the writer would have: the next three
+    steps match the uninterrupted run. build_optimizer's AdamW keeps its
+    fused path when it reads a foreach state; torch's foreach AdamW (what
+    build_optimizer built on CUDA before the fused update) takes over the
+    fused path of the state it reads."""
+    cfg = default_cfg(optimizer="adamw", lr=0.01, momentum=0.9, weight_decay=0.05,
+                      lr_decay_alpha=0.5, lr_decay_step=1)
+    schedule = step_lr_schedule(cfg.lr, cfg.lr_decay_alpha, cfg.lr_decay_step, 2)
+    init, grads = _adam_case(torch.float32)
+
+    def foreach_adamw(params):
+        # What build_optimizer built on CUDA before the fused update (torch's default there).
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.05, foreach=True)
+
+    def fused_adamw(params):
+        return build_optimizer(cfg, params)
+
+    write, read = ((foreach_adamw, fused_adamw) if writer == "foreach"
+                   else (fused_adamw, foreach_adamw))
+    whole = [torch.nn.Parameter(t.clone()) for t in init]
+    _adam_run(write(whole), whole, grads, schedule, range(6))
+
+    first = [torch.nn.Parameter(t.clone()) for t in init]
+    opt = write(first)
+    _adam_run(opt, first, grads, schedule, range(3))
+    saved = opt.state_dict()
+    assert saved["state"][0]["step"].device.type == "cpu"
+    second = [torch.nn.Parameter(p.detach().clone()) for p in first]
+    resumed = read(second)
+    resumed.load_state_dict(saved)
+    assert resumed.param_groups[0]["fused"] is True
+    assert all(s["step"].dtype == torch.float32 for s in resumed.state.values())
+    _adam_run(resumed, second, grads, schedule, range(3, 6))
+    for p, q in zip(second, whole):
+        torch.testing.assert_close(p.detach(), q.detach(), rtol=1e-6, atol=1e-9)
 
 
 def test_step_lr_schedule():
@@ -257,6 +355,46 @@ def test_train_cli_end_to_end(dataset, tmp_path):
     assert ckpt["epoch"] == 2 and ckpt["step"] == 4
     with pytest.raises(ValueError, match="mismatch"):
         train.main(common + ["--max_epochs", "3", "--optimizer", "sgd"])
+
+
+def test_train_cli_resumes_a_foreach_adamw_checkpoint(dataset, tmp_path, monkeypatch):
+    """A checkpoint whose AdamW state torch's default update wrote (as every
+    checkpoint before the fused update: foreach on CUDA, the single-tensor
+    loop on the CPU) resumes through the train CLI fused, with its moments
+    and step count: its next step gives what the writer's own update gives.
+    One step an epoch, since AdamW's sign-like steps on KRN's random init
+    turn the two updates' last-bit differences into gaps of 1e-3 a step
+    later."""
+    common = ["--dataroot", dataset, "--input_shape", "32", "32", "--batch_size", "8",
+              "--num_workers", "2", "--optimizer", "adamw", "--no_cuda"]
+
+    def run(name, epochs):
+        save = str(tmp_path / name)
+        train.main(common + ["--savedir", save, "--logdir", str(tmp_path / f"{name}_log"),
+                             "--max_epochs", str(epochs)])
+        return torch.load(os.path.join(save, "checkpoint.pt"), weights_only=True)
+
+    def torch_default_adamw(cfg, params):  # build_optimizer's AdamW before the fused update
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=(cfg.momentum, 0.999), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
+
+    with monkeypatch.context() as m:
+        m.setattr(train, "build_optimizer", torch_default_adamw)
+        old = run("ours", 1)
+        shutil.copytree(tmp_path / "ours", tmp_path / "ref")
+        ref = run("ref", 2)
+    assert old["step"] == 1 and old["opt_state"]["param_groups"][0]["fused"] is None
+    assert old["opt_state"]["state"][0]["step"].device.type == "cpu"
+    ours = run("ours", 2)
+    assert ours["epoch"] == ref["epoch"] == 2 and ours["step"] == ref["step"] == 2
+    assert ours["opt_state"]["param_groups"][0]["fused"] is True
+    assert ref["opt_state"]["param_groups"][0]["fused"] is None
+    for k, v in ref["variables"].items():
+        torch.testing.assert_close(ours["variables"][k], v, rtol=1e-6, atol=1e-9, msg=k)
+    for i, st in ref["opt_state"]["state"].items():
+        assert float(ours["opt_state"]["state"][i]["step"]) == float(st["step"]) == 2
+        torch.testing.assert_close(ours["opt_state"]["state"][i]["exp_avg"], st["exp_avg"],
+                                   rtol=1e-6, atol=1e-12)
 
 
 def test_profile_dir_traces_from_the_second_epoch(dataset, tmp_path):
