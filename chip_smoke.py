@@ -15,7 +15,10 @@ Phases, each printing its own lines:
                 its paths, with plan()'s path, the path run, the cut and the
                 time of each site of both paths and the card's cluster
                 occupancy; B1 + B2 per styled step of each model against
-                their bound; then the whole Ghiasi generator on the card, in
+                their bound; E1, the edge convs (layer0 and layer10, bf16),
+                at odd shapes and at both cells' (KRN 192 x 224^2, SPN 48 x
+                227^2 / 228^2), timed beside their bound, their plain
+                version and F.pad + F.conv2d; then the whole Ghiasi generator on the card, in
                 f32 and in bf16, against the plain f32 version on the CPU
                 (phase ghiasi), and the bf16 generator on the flax-init
                 weights of each seed of JAX_GHIASI_BF16, with the kernels
@@ -187,6 +190,11 @@ B2_SITES = (
 )
 B1_SHAPE = (B, S // 4, S // 4, 128)
 B1_CALLS_PER_STEP = 5
+# E1, the edge convs (csrc/edgeconv.cu): (layer, Cin, Cout), and the (B, H, W)
+# of each at the benchmark cells' shapes: KRN at batch 192, SPN's 227^2
+# layer0 and 228^2 layer10 at batch 48.
+E1_LAYERS = (("layer0", 3, 32), ("layer10", 32, 3))
+E1_SHAPES = {"krn": ((192, S, S), (192, S, S)), "spn": ((B, 227, 227), (B, 228, 228))}
 # SPN's 227^2 through the generator: 227 -> 114 -> 57 (B1) -> 114 -> 228.
 SPN_S, SPN_CLASSES, SPN_NEIGHBORS = 227, 5000, 5
 SPN_B2_SITES = (
@@ -289,8 +297,8 @@ TOY_STEPS, TOY_B, TOY_S = 600, 8, 64
 # the images of bench_host_loader, the timed steps of each A/B arm, and B1's
 # and B2's launches a styled step in each Ghiasi lowering.
 PERF_E2E_IMAGES, PERF_E2E_EPOCHS, PERF_LOADER_IMAGES, PERF_AB_STEPS = 96, 2, 32, 10
-PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6},
-                 "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2}}
+PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6, "reflect_conv9x9": 2},
+                 "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2, "reflect_conv9x9": 0}}
 # Device kernels of B1 and B2 by name, as a profiler trace holds them.
 B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
 # The program's spans (io_utils/spans.py) a styled KRN training epoch records.
@@ -456,6 +464,55 @@ def b1_time(dev, args, shape, model: str):
     return ms, pms, max(by_split, by_bytes), by_tc
 
 
+def e1_rows(dev, g):
+    """E1 against its plain version at odd shapes and both cells', bf16,
+    then per styled step of each cell (layer0 + layer10): kernel, plain and
+    F.pad + F.conv2d (the library path the port no longer takes in bf16 on
+    the card) ms beside the bound (bytes: x read and out written once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speedplusbaseline_tpu_torch.ops import edgeconv as ec
+
+    print("phase kernels: E1 reflect_conv9x9 vs reflect_conv9x9_plain", flush=True)
+
+    def args(cin, cout, shape):
+        x = torch.rand(*shape, cin, device=dev, generator=g).to(torch.bfloat16)
+        w = torch.randn(cout, cin, 9, 9, device=dev, generator=g) / math.sqrt(81 * cin)
+        b = torch.randn(cout, device=dev, generator=g) * 0.1
+        return x, w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+    err = 0.0
+    shapes = [(2, 5, 7), (3, 37, 61)] + [s for pair in E1_SHAPES.values() for s in pair]
+    for layer, cin, cout in E1_LAYERS:
+        for shape in shapes:
+            x, w, b = args(cin, cout, shape)
+            err = max(err, compare(f"E1 {layer} {shape} bf16", ec.reflect_conv9x9(x, w, b),
+                                   ec.reflect_conv9x9_plain(x, w, b), TOL["bfloat16"]))
+    per = {}
+    for model, pair in E1_SHAPES.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for (layer, cin, cout), shape in zip(E1_LAYERS, pair):
+            x, w, b = args(cin, cout, shape)
+            x_nchw = x.permute(0, 3, 1, 2)
+            ms = time_ms(lambda: ec.reflect_conv9x9(x, w, b))
+            pms = time_ms(lambda: ec.reflect_conv9x9_plain(x, w, b), 5)
+            lms = time_ms(lambda: F.conv2d(F.pad(x_nchw, (4,) * 4, mode="reflect"), w, b), 5)
+            bound = max(ec.bytes_moved(shape, cin, cout) / HBM_BYTES_PER_S,
+                        ec.flops(shape, cin, cout) / BF16_TENSOR_FLOPS) * 1e3
+            print(f"  E1 {model} {layer} {shape} {cin} -> {cout} bf16: kernel {ms:.4f} ms, "
+                  f"bound {bound:.4f} ms (bytes), {ms / bound:.2f}x bound; plain {pms:.4f} ms, "
+                  f"F.pad + F.conv2d {lms:.4f} ms", flush=True)
+            for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bound)):
+                tot[k] += v
+        per[model] = tot
+        print(f"phase kernels: E1 per {model} styled step: kernel {tot['ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.0%} of bound)", flush=True)
+    return {"max_abs_err": err, "bound_by": "bytes",
+            "bound_basis": "one read of x and one write of out at the HBM rate",
+            "bound_ms_bf16_tensor_core": None, **per["krn"], "spn": per["spn"]}
+
+
 def phase_kernels(dev):
     import torch
 
@@ -533,6 +590,7 @@ def phase_kernels(dev):
                                  "bound_basis": f"{B1_PASSES} split-bf16 passes at the "
                                                 "bf16 tensor-core peak",
                                  **per["krn"], "spn": per["spn"]}
+    report["reflect_conv9x9"] = e1_rows(dev, g)
     for model, b2, b1 in (("krn", tot, per["krn"]), ("spn", spn_tot, per["spn"])):
         ms, bound = b2["ms"] + b1["ms"], b2["bound_ms"] + b1["bound_ms"]
         print(f"phase kernels: B1 + B2 per {model} styled step (batch {B}): kernel {ms:.4f} ms, "
@@ -673,8 +731,8 @@ def phase_ghiasi_flax_init(dev):
         with _PlainGhiasi():
             q = stats(run(net_gpu), ref)
         launched = [{n: b[n] - a[n] for n in a} for a, b in ((n0, n1), (n1, _build.launches))]
-        if launched != [{"instance_norm_film": 6, "ghiasi_resblock": 5},
-                        {"instance_norm_film": 0, "ghiasi_resblock": 0}]:
+        if launched != [{"instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2},
+                        {"instance_norm_film": 0, "ghiasi_resblock": 0, "reflect_conv9x9": 0}]:
             faults.append(f"seed {seed}: the K and Q runs launched {launched}")
         sites = {}
         for layer, (name, args, kw, out) in enumerate(calls):
@@ -2210,7 +2268,8 @@ def phase_ghiasi_phase(dev, sd):
     losses, launches = out[True]
     if not all(math.isfinite(v) for v in losses.values()):
         fail(f"ghiasi_phase: the phase-space styled step's losses {losses}")
-    if launches != {"ghiasi_resblock": B1_CALLS_PER_STEP, "instance_norm_film": 2}:
+    if launches != {"ghiasi_resblock": B1_CALLS_PER_STEP, "instance_norm_film": 2,
+                    "reflect_conv9x9": 0}:
         fail(f"ghiasi_phase: one phase-space styled step launched {launches}")
     return launches
 
@@ -2356,8 +2415,13 @@ def phase_quality(dev):
             finally:
                 styleaug_ab_run.N_PHOTO = n_photo
             arm_c = [a for a in arms[before_c:] if "--randomize_texture" in a[1]]
-            if len(arm_c) != 1 or not all(arm_c[0][2].values()):
-                fail(f"quality: arm C's kernel launches {arm_c}: B1 and B2 must launch")
+            # Arm C trains in f32 (no --use_fp16): its generator runs B1 and B2,
+            # and E1, which serves bf16 only, not at all.
+            if len(arm_c) != 1 or not (arm_c[0][2]["ghiasi_resblock"]
+                                       and arm_c[0][2]["instance_norm_film"]) \
+                    or arm_c[0][2]["reflect_conv9x9"]:
+                fail(f"quality: arm C's kernel launches {arm_c}: B1 and B2 must launch, "
+                     f"E1 not (f32)")
             print(f"phase quality: style-aug arm C launched {arm_c[0][2]}; "
                   f"{time.time() - t0:.1f} s", flush=True)
 
@@ -2441,7 +2505,8 @@ def phase_quality(dev):
 
 class _PlainGhiasi:
     """Within it, the generator calls the plain PyTorch version of B1 and / or
-    B2 in place of its wrapper, on the card too."""
+    B2 (and of E1, which only a bf16 generator reaches) in place of its
+    wrapper, on the card too."""
 
     def __init__(self, b1: bool = True, b2: bool = True):
         self.b1, self.b2 = b1, b2
@@ -2449,18 +2514,21 @@ class _PlainGhiasi:
     def __enter__(self):
         from speedplusbaseline_tpu_torch.models import ghiasi
         from speedplusbaseline_tpu_torch.ops import (ghiasi_resblock_plain,
-                                                     instance_norm_film_plain)
+                                                     instance_norm_film_plain,
+                                                     reflect_conv9x9_plain)
 
-        self.saved = ghiasi.ghiasi_resblock, ghiasi.instance_norm_film
+        self.saved = ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9
         if self.b1:
             ghiasi.ghiasi_resblock = ghiasi_resblock_plain
         if self.b2:
             ghiasi.instance_norm_film = instance_norm_film_plain
+        if self.b1 and self.b2:
+            ghiasi.reflect_conv9x9 = reflect_conv9x9_plain
 
     def __exit__(self, *exc):
         from speedplusbaseline_tpu_torch.models import ghiasi
 
-        ghiasi.ghiasi_resblock, ghiasi.instance_norm_film = self.saved
+        ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9 = self.saved
 
 
 def asset_content(dev):
@@ -2517,7 +2585,8 @@ def phase_toy_ghiasi(dev, card: str):
         launched = {k: _build.launches[k] - before[k] for k in before}
         grads[path] = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                            allow_unused=True)))
-        expected = {"ghiasi_resblock": 5 * (not b1), "instance_norm_film": 6 * (not b2)}
+        expected = {"ghiasi_resblock": 5 * (not b1), "instance_norm_film": 6 * (not b2),
+                    "reflect_conv9x9": 0}  # the toy generator is f32
         if launched != expected:
             fail(f"toy_ghiasi: the {path} path's forward launched {launched}, not {expected}")
         if path in ("kernels", "plain"):
@@ -2705,7 +2774,7 @@ def phase_perf(card: str):
                                                   bench_host_loader)
 
     t_phase = time.time()
-    launches = {"instance_norm_film": 0, "ghiasi_resblock": 0}
+    launches = dict.fromkeys(_build.launches, 0)
 
     def run(module, argv):
         """``module.main(argv)``'s record and its B1 / B2 launches."""
@@ -2777,6 +2846,7 @@ def phase_bench(card: str):
     ``bench.krn_styled_steps`` and ``spn_styled_steps`` count them, and the
     other processes launch neither. Returns the phase's launches."""
     from speedplusbaseline_tpu_torch import bench
+    from speedplusbaseline_tpu_torch.ops import _build
 
     here = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.time()
@@ -2812,7 +2882,7 @@ def phase_bench(card: str):
 
     per_step = PERF_LAUNCHES[line["lowering"]]
     styled = {"krn": bench.krn_styled_steps(), "spn": bench.spn_styled_steps()}
-    launches = {"instance_norm_film": 0, "ghiasi_resblock": 0}
+    launches = dict.fromkeys(_build.launches, 0)
     measured = set()
     for entry in logged:
         argv = entry["argv"]
@@ -3037,7 +3107,9 @@ def main() -> None:
     src = {"instance_norm_film": ("speedplusbaseline_tpu_torch/csrc/instancenorm.cu",
                                   "speedplusbaseline_tpu/ops/pallas_instancenorm.py:71"),
            "ghiasi_resblock": ("speedplusbaseline_tpu_torch/csrc/resblock.cu",
-                               "speedplusbaseline_tpu/ops/pallas_resblock.py:110")}
+                               "speedplusbaseline_tpu/ops/pallas_resblock.py:110"),
+           "reflect_conv9x9": ("speedplusbaseline_tpu_torch/csrc/edgeconv.cu",
+                               "none: XLA's convs of speedplusbaseline_tpu/models/ghiasi.py")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = report[name]
@@ -3051,7 +3123,8 @@ def main() -> None:
                         "bound_basis": r["bound_basis"],
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
-    print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls), "
+    print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls; "
+          "E1: layer0 + layer10 at the KRN cell's batch 192), "
           "bf16, and under \"spn\" per styled SPN step (227^2); launches count the "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "

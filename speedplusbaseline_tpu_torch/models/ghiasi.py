@@ -7,9 +7,12 @@ residual blocks, two FiLM-conditioned upsample layers and a 9x9 output conv
 
 Every instance norm goes through ``ops.instance_norm_film`` (kernel B2 on
 CUDA) and every residual block through ``ops.ghiasi_resblock`` (kernel B1 on
-CUDA); there is no switch that turns them off on the card. The 9x9, strided
-and upsample convs are plain ``F.conv2d``, as the JAX package leaves them to
-XLA.
+CUDA); there is no switch that turns them off on the card. The strided and
+upsample convs are plain ``F.conv2d``, as the JAX package leaves them to
+XLA. The two 9x9 convs (layers 0 and 10, reflect pad included) go through
+``ops.reflect_conv9x9`` (the edge-conv kernel) where their input is bf16 on
+CUDA; in f32, on the CPU and in the phase-space lowering they stay
+``reflect_pad`` + ``F.conv2d``.
 
 ``dtype`` is the compute dtype, as the flax module's: the input and the conv
 weights are cast to it, FiLM stays f32, and the output is the sigmoid cast to
@@ -43,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops._vjp import needs_grad
+from ..ops.edgeconv import reflect_conv9x9
 from ..ops.instancenorm import compute_dtype, instance_norm_film
 from ..ops.phase_conv import (conv3x3_s2_phase_aligned, conv9x9_phase, conv9x9_phase_dp,
                               depth_to_space2, phase_instance_norm_packed,
@@ -83,6 +87,20 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.stride)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def _padded_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Reflect pad + conv of an NCHW (channels_last) x, as (B, H, W, C). A
+    9x9 conv of a bf16 x on the card runs the edge-conv kernel, on the same
+    bf16 operands as ``_conv``; any other takes ``reflect_pad`` + ``_conv``."""
+    k = conv.kernel_size[0]
+    if k == 9 and x.dtype == torch.bfloat16 and _on_card(x):
+        return reflect_conv9x9(_nhwc(x), conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+    return _nhwc(_conv(conv, reflect_pad(x, k // 2)))
+
+
 class ConvInRelu(nn.Module):
     """ReflectionPad + Conv + InstanceNorm + ReLU (ghiasi.py:6-23)."""
 
@@ -92,8 +110,7 @@ class ConvInRelu(nn.Module):
         flax_default_init_(self)
 
     def forward(self, x):
-        y = _conv(self.conv, reflect_pad(x, self.conv.kernel_size[0] // 2))
-        return _nchw(instance_norm_film(_nhwc(y), relu=True))
+        return _nchw(instance_norm_film(_padded_conv(self.conv, x), relu=True))
 
 
 class UpsampleConvInRelu(nn.Module):
@@ -115,8 +132,8 @@ class UpsampleConvInRelu(nn.Module):
         beta = self.fc_beta(style)
         if self.upsample:
             x = upsample_nearest(x, self.upsample)
-        y = _conv(self.conv, reflect_pad(x, self.conv.kernel_size[0] // 2))
-        return _nchw(instance_norm_film(_nhwc(y), gamma, beta, relu=self.use_relu))
+        return _nchw(instance_norm_film(_padded_conv(self.conv, x), gamma, beta,
+                                        relu=self.use_relu))
 
 
 class ResidualBlock(nn.Module):

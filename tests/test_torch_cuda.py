@@ -27,6 +27,7 @@ import torch
 from speedplusbaseline_tpu_torch.engine.steps import CudaGraphed, spn_pose
 from speedplusbaseline_tpu_torch.geometry import keypoints_to_pose, project_keypoints
 from speedplusbaseline_tpu_torch.ops import _build
+from speedplusbaseline_tpu_torch.ops.edgeconv import reflect_conv9x9, reflect_conv9x9_plain
 from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
                                                           instance_norm_film_plain, path_calls,
                                                           plan_on_card)
@@ -179,6 +180,85 @@ def test_resblock_rejects_what_the_kernel_does_not_take(dev, shape, match):
             + [torch.zeros(B, C, device=dev) for _ in range(4)])
     with pytest.raises(ValueError, match=match):
         ghiasi_resblock(x, *args)
+
+
+# (B, H, W) of the edge convs: KRN's, SPN's layer0 (227^2) and layer10
+# (228^2), and small odd ones, ragged on both layers' tiles.
+EDGE_SHAPES = [(192, 224, 224), (48, 227, 227), (48, 228, 228), (2, 5, 7), (3, 37, 61)]
+
+
+def _edge_args(dev, cin, cout, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(*shape, cin, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(cout, cin, 9, 9, device=dev, generator=g) / (81 * cin) ** 0.5
+    b = torch.randn(cout, device=dev, generator=g) * 0.1
+    return x, w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 3)])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_reflect_conv9x9_kernel(dev, cin, cout, shape):
+    """The edge-conv kernel against its plain version (f32 sums of the same
+    bf16 operands, rounded once) at the main paths' shapes and odd ones."""
+    x, w, b = _edge_args(dev, cin, cout, shape, 5)
+    before = _build.launches["reflect_conv9x9"]
+    _check(reflect_conv9x9(x, w, b), reflect_conv9x9_plain(x, w, b), TOL[torch.bfloat16])
+    assert _build.launches["reflect_conv9x9"] == before + 1
+
+
+def test_reflect_conv9x9_gradient_on_card(dev):
+    """Under grad the kernel still runs the forward, and every argument's
+    gradient is the plain version's VJP."""
+    args = [a.requires_grad_() for a in _edge_args(dev, 32, 3, (2, 11, 13), 6)]
+    before = _build.launches["reflect_conv9x9"]
+    out = reflect_conv9x9(*args)
+    assert _build.launches["reflect_conv9x9"] == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    cot = cot.to(torch.bfloat16)
+    got = torch.autograd.grad(out, args, cot)
+    ref = torch.autograd.grad(reflect_conv9x9_plain(*args), args, cot)
+    for a, r in zip(got, ref):
+        _check(a, r, TOL_GRAD[a.dtype])
+
+
+def test_reflect_conv9x9_rejects_what_the_kernel_does_not_take(dev):
+    """f32 on the card, a side under 5 and another channel pair are refused;
+    there is no fallback."""
+    x, w, b = _edge_args(dev, 32, 3, (1, 9, 9), 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        reflect_conv9x9(x.float(), w.float(), b.float())
+    with pytest.raises(ValueError, match=">= 5"):
+        reflect_conv9x9(x[:, :4].contiguous(), w, b)
+    with pytest.raises(ValueError, match="one of"):
+        reflect_conv9x9(x[..., :16].contiguous(), w[:, :16].contiguous(), b)
+
+
+@pytest.mark.parametrize("side", [224, 227])
+def test_ghiasi_bf16_on_card_within_bound_of_f32(dev, side):
+    """The bf16 generator (B1, B2 and the edge convs) on the shipped weights
+    against the f32 one on the card, within chip_smoke's TOL_GHIASI_BF16
+    (2^-6), with layer0 and layer10 on the edge-conv kernel; the f32
+    generator launches it not at all."""
+    import os
+
+    from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
+    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
+    from speedplusbaseline_tpu_torch.models.ghiasi import Ghiasi
+
+    sd = load_ghiasi_params(os.path.join(default_assets_dir(), "ghiasi_params.msgpack"))
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand(2, 3, side, side, device=dev, generator=g)
+    st = torch.randn(2, 100, device=dev, generator=g) * 0.5
+    out, ran = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = Ghiasi(dtype).to(dev).eval()
+        net.load_state_dict(sd)
+        before = _build.launches["reflect_conv9x9"]
+        with torch.no_grad():
+            out[dtype] = net(x, st).float()
+        ran[dtype] = _build.launches["reflect_conv9x9"] - before
+    assert ran == {torch.float32: 0, torch.bfloat16: 2}
+    _check(out[torch.bfloat16], out[torch.float32], (2.0 ** -6, 0.0))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -392,7 +472,7 @@ def test_ghiasi_bf16_flax_init_within_rule_of_jax(dev, seed):
         ref = net(x, st)
         got = card(x.to(dev), st.to(dev)).float().cpu()
     assert {k: _build.launches[k] - v for k, v in before.items()} == {
-        "instance_norm_film": 6, "ghiasi_resblock": 5}
+        "instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2}
     err = (got - ref).abs()
     assert not chip_smoke.ghiasi_bf16_fault(seed, err.max().item(), err.mean().item()), (
         err.max().item(), err.mean().item(), chip_smoke.JAX_GHIASI_BF16[seed])
