@@ -1607,7 +1607,7 @@ def checkpoint_stylepredictor(seed: int):
 
 
 class _Capture:
-    """Wraps the train CLI's ``train_epoch`` and ``_style_augmentor`` for
+    """Wraps the train CLI's ``train_epoch`` and ``style_augmentor`` for
     one run: the model's state_dict when the first epoch starts (before the
     first step) and the style augmentor it built. Restores both on exit."""
 
@@ -1616,7 +1616,7 @@ class _Capture:
 
     def __enter__(self):
         t = self.train
-        self.epoch, self.style = t.train_epoch, t._style_augmentor
+        self.epoch, self.style = t.train_epoch, t.style_augmentor
 
         def epoch(n, cfg, state, *a, **k):
             if self.model_at_start is None:
@@ -1628,11 +1628,11 @@ class _Capture:
             self.aug = self.style(*a, **k)
             return self.aug
 
-        t.train_epoch, t._style_augmentor = epoch, style
+        t.train_epoch, t.style_augmentor = epoch, style
         return self
 
     def __exit__(self, *exc):
-        self.train.train_epoch, self.train._style_augmentor = self.epoch, self.style
+        self.train.train_epoch, self.train.style_augmentor = self.epoch, self.style
 
 
 class _Lines(logging.Handler):
@@ -1937,14 +1937,10 @@ def ddp_setup(model: str, dev):
     import numpy as np
     import torch
 
-    from speedplusbaseline_tpu_torch.augment.styleaug import (StyleAugmentor,
-                                                              load_ghiasi_params,
-                                                              load_style_stats)
+    from speedplusbaseline_tpu_torch.augment.styleaug import style_augmentor
     from speedplusbaseline_tpu_torch.config import default_cfg
-    from speedplusbaseline_tpu_torch.engine import TrainState, build_optimizer
+    from speedplusbaseline_tpu_torch.engine import TrainState
     from speedplusbaseline_tpu_torch.engine.steps import make_dann_train_step, make_train_step
-    from speedplusbaseline_tpu_torch.io_utils import default_assets_dir
-    from speedplusbaseline_tpu_torch.models import get_model
     from speedplusbaseline_tpu_torch.parallel import global_batch, rank_world
 
     side = SPN_S if model == "spn" else S
@@ -1953,8 +1949,7 @@ def ddp_setup(model: str, dev):
                       input_shape=(side, side), num_classes=SPN_CLASSES, batch_size=n,
                       optimizer="sgd", lr=1e-2, momentum=0.0, weight_decay=0.0)
     torch.manual_seed(0)
-    net = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    state = TrainState(net, build_optimizer(cfg, net.parameters()))
+    state = TrainState.for_config(cfg, dev)
     world = rank_world()[1] if rank_world() else 1
     rows = global_batch(n // world)[1]
     rs = np.random.RandomState(1)
@@ -1981,10 +1976,7 @@ def ddp_setup(model: str, dev):
             y_classes[i, idx] = 1.0 / SPN_NEIGHBORS
             y_weights[i, idx] = rs.dirichlet(np.ones(SPN_NEIGHBORS))
         batch.update(y_classes=part(y_classes), y_weights=part(y_weights))
-    aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.float32, dev)
-    aug.ghiasi.load_state_dict(load_ghiasi_params(
-        os.path.join(default_assets_dir(), "ghiasi_params.msgpack")))
-    step = make_train_step(cfg, dev, aug)
+    step = make_train_step(cfg, dev, style_augmentor(cfg, dev))  # f32: cfg has no --use_fp16
     return state, lambda st: step(st, batch, True)
 
 
@@ -1993,8 +1985,9 @@ def ddp_ranks(device: str):
     DDP_MODELS in turn, in one process group. Returns {model: its result}."""
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from speedplusbaseline_tpu_torch.config import full_f32
+
+    full_f32()
     out = {}
     for model in DDP_MODELS:
         out[model] = ddp_rank(model, torch.device(device))
@@ -2049,8 +2042,9 @@ def ddp_nccl_rank():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from speedplusbaseline_tpu_torch.config import full_f32
+
+    full_f32()
     dev = torch.device("cuda", 0)
     state, step = ddp_setup("krn", dev)
     with_ms = step_times(state, step)
@@ -3051,14 +3045,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
+        from speedplusbaseline_tpu_torch.config import full_f32
         from speedplusbaseline_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
     if "jax" in sys.modules:
         fail("jax was imported")
     dev = torch.device("cuda", 0)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
 
     seconds = {}
 

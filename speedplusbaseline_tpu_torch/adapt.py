@@ -19,28 +19,18 @@ it raises.
 """
 from __future__ import annotations
 
-import logging
 import math
-import os
-import os.path as osp
 from typing import List, Optional, Sequence
 
-import torch
-
-from .config import check_ported, check_resume_compat, parse_cfg, resolve_device, save_cfg
+from .config import check_ported, parse_cfg, resolve_device
 from .data.loader import make_dataloader
 from .engine.loops import run_validation, train_epoch
-from .engine.optim import build_optimizer, set_lr, step_lr_schedule
+from .engine.optim import set_lr, step_lr_schedule
+from .engine.run import end_epoch, open_run, resume
 from .engine.state import TrainState
 from .engine.steps import make_dann_train_step
-from .io_utils import (SummaryWriter, checkpoint_exists, load_checkpoint, save_checkpoint,
-                       setup_logger)
-from .io_utils.checkpoint import CKPT_NAME
-from .models.build import get_model
-from .parallel import barrier, broadcast_params, is_main, launch
+from .parallel import broadcast_params, launch
 from .train import eval_setup
-
-logger = logging.getLogger(__name__)
 
 
 def grl_alpha(idx: int, n_batches: int, epoch: int, max_epochs: int) -> float:
@@ -63,37 +53,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
 
 def _adapt(cfg) -> List[dict]:
-    device = resolve_device(cfg)
-    setup_logger("train")
-    logger.info("Random seed value: %d", cfg.seed)
-    logger.info("Device: %s", device)
-    # f32 math is full f32 (cuDNN would run f32 convs in TF32 by default).
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.manual_seed(cfg.seed)
-
-    os.makedirs(cfg.savedir, exist_ok=True)
-    logger.info("Checkpoints will be saved to %s", cfg.savedir)
-    writer = SummaryWriter(cfg.logdir) if is_main() else None
-    if cfg.auto_resume and checkpoint_exists(cfg.savedir):
-        check_resume_compat(cfg, cfg.savedir)
-    barrier(device)  # every rank has read the snapshot before rank 0 rewrites it
-    if is_main():
-        save_cfg(cfg, cfg.savedir)
-
-    model = get_model(cfg).to(device, memory_format=torch.channels_last)  # RevGrad
+    device, writer = open_run(cfg)
+    state = TrainState.for_config(cfg, device)  # RevGrad
     source_loader = make_dataloader(cfg, device)
     target_loader = make_dataloader(cfg, device, is_source=False, load_labels=False)
     steps_per_epoch = min(len(source_loader), len(target_loader))
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
 
-    begin_epoch, best_perf = 0, 0
-    if cfg.auto_resume and checkpoint_exists(cfg.savedir):
-        ckpt = load_checkpoint(osp.join(cfg.savedir, CKPT_NAME), device)
-        state.restore(ckpt)
-        begin_epoch = int(ckpt["epoch"])
-        best_perf = begin_epoch
-    broadcast_params(model)
+    begin_epoch, best_perf = resume(cfg, state, device)
+    broadcast_params(state.model)
 
     train_step = make_dann_train_step(cfg, device)
     validate = cfg.test_epoch > 0
@@ -116,16 +83,7 @@ def _adapt(cfg) -> List[dict]:
                                 "alpha": alpha_fn(r["step"], steps_per_epoch), **r})
             if validate and (epoch + 1) % cfg.test_epoch == 0:
                 run_validation(epoch + 1, cfg, eval_step, state.model, test_loader, writer)
-            # "Best" degenerates to latest, as in the reference.
-            perf = epoch + 1
-            is_best = perf > best_perf
-            best_perf = max(best_perf, perf)
-            if (epoch + 1) % cfg.save_epoch == 0 or epoch + 1 == cfg.max_epochs:
-                if is_main():
-                    save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
-                                                             best_perf),
-                                    is_best, cfg.savedir)
-                barrier(device)
+            best_perf = end_epoch(cfg, state, epoch + 1, best_perf, device)
     finally:
         if writer is not None:
             writer.close()

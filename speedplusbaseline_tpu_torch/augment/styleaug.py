@@ -8,6 +8,7 @@ generator under ``torch.no_grad()`` (the reference's ``.detach()``).
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional, Tuple
 
@@ -15,8 +16,11 @@ import numpy as np
 import torch
 
 from ..convert import flax_to_state_dict, read_flax_msgpack
+from ..io_utils.assets import default_assets_dir
 from ..io_utils.spans import span
 from ..models.ghiasi import EMBED_DIM, Ghiasi
+
+logger = logging.getLogger(__name__)
 
 
 def load_style_stats(assets_dir: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -87,3 +91,29 @@ class StyleAugmentor:
             emb = self.sample_embedding(x.shape[0], generator, z)
             emb = self.alpha * emb + (1.0 - self.alpha) * self.base
             return self.ghiasi(x, emb)
+
+
+def style_augmentor(cfg, device: torch.device, phase_space: bool = False) -> StyleAugmentor:
+    """The train CLI's style augmentor: alpha ``--texture_alpha``, bf16 under
+    ``--use_fp16`` (else f32), the shipped embedding statistics and generator
+    weights of the assets directory, each replaced by a seeded stand-in
+    (with a warning) where the assets lack it."""
+    try:
+        stats = load_style_stats(default_assets_dir())
+    except FileNotFoundError:
+        logger.warning("Style embedding assets missing; using random stats")
+        stats = random_style_stats(cfg.seed)
+    dtype = torch.bfloat16 if cfg.fp16 else torch.float32
+    torch.manual_seed(cfg.seed + 1)  # random Ghiasi init when the asset is absent
+    aug = StyleAugmentor(cfg.texture_alpha, stats, dtype=dtype, device=device,
+                         phase_space=phase_space)
+    ghiasi_ckpt = os.path.join(default_assets_dir(), "ghiasi_params.msgpack")
+    if os.path.exists(ghiasi_ckpt):
+        aug.ghiasi.load_state_dict(load_ghiasi_params(ghiasi_ckpt))
+        logger.info("Ghiasi transformer weights loaded from %s", ghiasi_ckpt)
+    else:
+        logger.warning("Ghiasi transformer weights not found (%s); using random "
+                       "init", ghiasi_ckpt)
+    logger.info("Texture randomization enabled with alpha = %s", cfg.texture_alpha)
+    logger.info("   - Randomization ratio: %.2f", cfg.texture_ratio)
+    return aug

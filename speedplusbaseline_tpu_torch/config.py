@@ -129,6 +129,14 @@ def resolve_device(cfg) -> torch.device:
     return torch.device("cuda", cfg.gpu_id)
 
 
+def full_f32() -> None:
+    """f32 math is full f32: cuDNN and cuBLAS would run f32 convs and
+    matmuls in TF32 by default. Every entry point sets this before it
+    builds a model."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def save_cfg(cfg, savedir: str, filename: str = "config.txt") -> None:
     """Snapshot config as JSON, matching reference train.py:69-70."""
     os.makedirs(savedir, exist_ok=True)

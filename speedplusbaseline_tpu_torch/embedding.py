@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import resolve_device
+from .config import full_f32, resolve_device
 from .convert import flax_to_state_dict, read_flax_msgpack
 from .models.style_predictor import EMBED_DIM, StylePredictor
 from .models.weight_convert import convert_style_predictor
@@ -75,8 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
 
     paths = image_paths(args.data_dir)
     if not paths:

@@ -7,12 +7,22 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.build import get_model
+from .optim import build_optimizer
+
 
 @dataclass
 class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    @classmethod
+    def for_config(cls, cfg, device: torch.device) -> "TrainState":
+        """``get_model(cfg)`` channels_last on ``device`` and its optimizer.
+        Draws only the model's init: the caller seeds."""
+        model = get_model(cfg).to(device, memory_format=torch.channels_last)
+        return cls(model, build_optimizer(cfg, model.parameters()))
 
     def as_checkpoint_dict(self, epoch: int, model_name: str, best_score):
         return {

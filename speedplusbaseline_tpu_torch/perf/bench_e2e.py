@@ -41,10 +41,8 @@ from ..data.cache import build_cache
 from ..data.loader import make_dataloader
 from ..data.preprocess import json2csv
 from ..data.synthetic import generate_fake_speedplus
-from ..engine.optim import build_optimizer
 from ..engine.state import TrainState
 from ..engine.steps import make_krn_train_step
-from ..models.build import get_model
 from ..native import native_available
 
 CACHE_SIZE = 512
@@ -71,8 +69,7 @@ def measure(root: str, cache_dir: str, epochs: int, dev: torch.device, native: b
     if len(loader) == 0:
         raise ValueError(f"{len(loader.dataset)} rows make no batch of {batch}")
     torch.manual_seed(0)
-    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
+    state = TrainState.for_config(cfg, dev)
     step = make_krn_train_step(cfg, dev, style_aug=None)
     rates = []
     for epoch in range(epochs):

@@ -30,12 +30,10 @@ import numpy as np
 import torch
 
 from ..augment.styleaug import StyleAugmentor, load_style_stats, random_style_stats
-from ..config import default_cfg, resolve_device
-from ..engine.optim import build_optimizer
+from ..config import default_cfg, full_f32, resolve_device
 from ..engine.state import TrainState
 from ..engine.steps import make_train_step
 from ..io_utils import default_assets_dir
-from ..models.build import get_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WARMUP_STEPS = 5
@@ -52,11 +50,10 @@ CHILD_TIMEOUT_S = 900
 
 def device(no_cuda: bool) -> torch.device:
     """The card unless ``no_cuda``; raises when no GPU is present and
-    ``no_cuda`` is not given. f32 math is full f32, as in the CLIs (cuDNN
-    would run f32 convs in TF32)."""
+    ``no_cuda`` is not given. f32 math is full f32, as in the CLIs
+    (``config.full_f32``)."""
     dev = resolve_device(SimpleNamespace(use_cuda=not no_cuda, gpu_id=0))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
     return dev
 
 
@@ -148,15 +145,16 @@ def new_state(cfg, dev: torch.device) -> TrainState:
     """The model of ``cfg`` from seed 0 (JAX's ``PRNGKey(0)``), channels_last
     on ``dev``, and its optimizer."""
     torch.manual_seed(0)
-    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    return TrainState(model, build_optimizer(cfg, model.parameters()))
+    return TrainState.for_config(cfg, dev)
 
 
 def generator(cfg, dev: torch.device, **kw) -> StyleAugmentor:
     """The bf16 style augmentor on the shipped statistics, its generator's
     weights from seed 1 (flax's init, ``flax_default_init_``, as JAX's
     ``init_params(PRNGKey(1))``); ``kw`` (``phase_space``, ``f32_out``) goes
-    to the StyleAugmentor."""
+    to the StyleAugmentor. Unlike the trainer's ``styleaug.style_augmentor``,
+    which loads the shipped generator weights, this keeps the JAX benches'
+    flax init, so that each A/B arm times what its JAX counterpart times."""
     torch.manual_seed(1)
     return StyleAugmentor(cfg.texture_alpha, style_stats(), torch.bfloat16, dev, **kw)
 

@@ -14,20 +14,16 @@ each timed and profiled. Needs a GPU.
 """
 from __future__ import annotations
 
-import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from .augment.styleaug import StyleAugmentor, load_ghiasi_params, load_style_stats
-from .config import default_cfg
-from .engine.optim import build_optimizer
+from .augment.styleaug import style_augmentor
+from .config import default_cfg, full_f32
 from .engine.state import TrainState
 from .engine.steps import make_dann_train_step, make_train_step
-from .io_utils import default_assets_dir
-from .models.build import get_model
 
 BATCH, REPS = 48, 10
 SIZE = {"krn": 224, "spn": 227, "dann": 224}
@@ -43,8 +39,7 @@ def build_dann(dev: torch.device, fp16: bool):
     alpha DANN_ALPHA."""
     S = SIZE["dann"]
     cfg = default_cfg(dann=True, batch_size=DANN_BATCH, input_shape=(S, S), fp16=fp16)
-    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
+    state = TrainState.for_config(cfg, dev)
     rs = np.random.RandomState(0)
     source = {"image": rs.randint(0, 256, (DANN_BATCH, S, S, 3), np.uint8),
               "keypts": rs.rand(DANN_BATCH, 2, 11).astype(np.float32)}
@@ -61,12 +56,8 @@ def build(dev: torch.device, model_name: str = "krn", phase_space: bool = False)
     S = SIZE[model_name]
     cfg = default_cfg(model_name=model_name, optimizer="adamw", weight_decay=0.01, fp16=True,
                       batch_size=BATCH, input_shape=(S, S), num_classes=SPN_CLASSES)
-    model = get_model(cfg).to(dev, memory_format=torch.channels_last)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
-    aug = StyleAugmentor(0.5, load_style_stats(default_assets_dir()), torch.bfloat16, dev,
-                         phase_space)
-    aug.ghiasi.load_state_dict(load_ghiasi_params(
-        os.path.join(default_assets_dir(), "ghiasi_params.msgpack")))
+    state = TrainState.for_config(cfg, dev)
+    aug = style_augmentor(cfg, dev, phase_space)
     rs = np.random.RandomState(0)
     data = {"image": rs.randint(0, 256, (BATCH, S, S, 3), np.uint8)}
     if model_name == "krn":
@@ -134,9 +125,7 @@ def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else list(argv)
     model_name = args[0] if args else "krn"
     dev = torch.device("cuda", 0)
-    # f32 math is full f32, as in the CLIs (cuDNN would run f32 convs in TF32).
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
     if model_name == "dann":
         for fp16 in (False, True):
             state, step, batch = build_dann(dev, fp16)

@@ -34,12 +34,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import check_ported, parse_cfg, resolve_device
+from ..config import check_ported, full_f32, parse_cfg, resolve_device
 from ..data.csv_dataset import SPNDataset
-from ..engine.optim import adam, build_optimizer
+from ..engine.optim import adam
 from ..engine.state import TrainState
 from ..engine.steps import make_spn_train_step
-from ..models.build import get_model
 
 DEFAULTS = ["--model_name", "spn", "--input_shape", "227", "227",
             "--dataroot", "runs/spn_conv", "--train_csv", "train.csv",
@@ -87,18 +86,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     cfg = parse_cfg(DEFAULTS + argv)
     check_ported(cfg)
     device = resolve_device(cfg)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
     torch.manual_seed(cfg.seed)
 
     host = load_batches(cfg, n_batches)
     print("batch:", {k: (v.shape, str(v.dtype)) for k, v in host[0].items()}, flush=True)
     batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in host]
 
-    model = get_model(cfg).to(device, memory_format=torch.channels_last)
-    params = model.parameters()
-    optimizer = no_clip_optimizer(cfg, params) if no_clip else build_optimizer(cfg, params)
-    state = TrainState(model, optimizer)
+    state = TrainState.for_config(cfg, device)
+    if no_clip:
+        state.optimizer = no_clip_optimizer(cfg, state.model.parameters())
     step = make_spn_train_step(cfg, device, clip=not no_clip)
 
     records: List[dict] = []

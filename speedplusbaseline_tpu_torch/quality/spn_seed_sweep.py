@@ -44,15 +44,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import parse_cfg, resolve_device
+from ..config import full_f32, parse_cfg, resolve_device
 from ..data.csv_dataset import SPNDataset
 from ..data.loader import make_dataloader
 from ..engine.loops import train_epoch
-from ..engine.optim import build_optimizer, set_lr, step_lr_schedule
+from ..engine.optim import set_lr, step_lr_schedule
 from ..engine.state import TrainState
 from ..engine.steps import images_to_float, make_spn_train_step
 from ..io_utils import default_assets_dir
-from ..models.build import get_model
 from ..models.weight_convert import maybe_load_pretrained
 from . import common, convergence_run
 
@@ -147,12 +146,11 @@ def live_run(cfg, steps_at: Sequence[int] = LIVE_STEPS):
     count the run ends on). Returns ({step: shares}, [mean loss_c of each
     epoch])."""
     device = resolve_device(cfg)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
     torch.manual_seed(cfg.seed)
-    model = get_model(cfg).to(device, memory_format=torch.channels_last)
+    state = TrainState.for_config(cfg, device)
+    model = state.model
     loader = make_dataloader(cfg, device)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
     maybe_load_pretrained(cfg, model, default_assets_dir())
     step = make_spn_train_step(cfg, device)
     schedule = step_lr_schedule(cfg.lr, cfg.lr_decay_alpha, cfg.lr_decay_step, len(loader))

@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .config import check_ported, parse_cfg, resolve_device
+from .config import check_ported, full_f32, parse_cfg, resolve_device
 from .convert import flax_to_state_dict, read_flax_msgpack
 from .engine.loops import run_validation
 from .io_utils import AverageMeter, setup_logger
@@ -65,8 +65,7 @@ def _test(cfg) -> Dict[str, AverageMeter]:
     setup_logger("test")
     os.makedirs(cfg.logdir, exist_ok=True)
     logger.info("Random seed value: %d", cfg.seed)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
     torch.manual_seed(cfg.seed)
 
     model = get_model(cfg)

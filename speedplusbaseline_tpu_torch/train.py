@@ -35,45 +35,20 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .augment.styleaug import (StyleAugmentor, load_ghiasi_params,
-                               load_style_stats, random_style_stats)
-from .config import (check_ported, check_resume_compat, parse_cfg,
-                     resolve_device, save_cfg)
+from .augment.styleaug import style_augmentor
+from .config import check_ported, parse_cfg, resolve_device
 from .data.loader import make_dataloader
 from .engine.loops import run_validation, train_epoch
-from .engine.optim import build_optimizer, set_lr, step_lr_schedule
+from .engine.optim import set_lr, step_lr_schedule
+from .engine.run import end_epoch, open_run, resume
 from .engine.state import TrainState
 from .engine.steps import make_krn_eval_step, make_spn_eval_step, make_train_step
-from .io_utils import (SummaryWriter, checkpoint_exists, default_assets_dir,
-                       load_attitude_classes, load_camera_intrinsics, load_checkpoint,
-                       load_tango_3d_keypoints, save_checkpoint, setup_logger)
-from .io_utils.checkpoint import CKPT_NAME
-from .models.build import get_model
+from .io_utils import (default_assets_dir, load_attitude_classes, load_camera_intrinsics,
+                       load_tango_3d_keypoints)
 from .models.weight_convert import maybe_load_pretrained
-from .parallel import barrier, broadcast_params, is_main, launch
+from .parallel import broadcast_params, is_main, launch
 
 logger = logging.getLogger(__name__)
-
-
-def _style_augmentor(cfg, device: torch.device) -> StyleAugmentor:
-    try:
-        stats = load_style_stats(default_assets_dir())
-    except FileNotFoundError:
-        logger.warning("Style embedding assets missing; using random stats")
-        stats = random_style_stats(cfg.seed)
-    dtype = torch.bfloat16 if cfg.fp16 else torch.float32
-    torch.manual_seed(cfg.seed + 1)  # random Ghiasi init when the asset is absent
-    aug = StyleAugmentor(cfg.texture_alpha, stats, dtype=dtype, device=device)
-    ghiasi_ckpt = osp.join(default_assets_dir(), "ghiasi_params.msgpack")
-    if osp.exists(ghiasi_ckpt):
-        aug.ghiasi.load_state_dict(load_ghiasi_params(ghiasi_ckpt))
-        logger.info("Ghiasi transformer weights loaded from %s", ghiasi_ckpt)
-    else:
-        logger.warning("Ghiasi transformer weights not found (%s); using random "
-                       "init", ghiasi_ckpt)
-    logger.info("Texture randomization enabled with alpha = %s", cfg.texture_alpha)
-    logger.info("   - Randomization ratio: %.2f", cfg.texture_ratio)
-    return aug
 
 
 def attitude_classes(cfg):
@@ -127,49 +102,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
 
 def _train(cfg) -> List[dict]:
-    device = resolve_device(cfg)
-    setup_logger("train")
-    logger.info("Random seed value: %d", cfg.seed)
-    logger.info("Device: %s", device)
-    # f32 math is full f32 (cuDNN would run f32 convs in TF32 by default).
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.manual_seed(cfg.seed)
-
-    os.makedirs(cfg.savedir, exist_ok=True)
-    logger.info("Checkpoints will be saved to %s", cfg.savedir)
-    writer = SummaryWriter(cfg.logdir) if is_main() else None
-    logger.info("Logs will be saved to %s", cfg.logdir)
-    if cfg.auto_resume and checkpoint_exists(cfg.savedir):
-        check_resume_compat(cfg, cfg.savedir)
-    barrier(device)  # every rank has read the snapshot before rank 0 rewrites it
-    if is_main():
-        save_cfg(cfg, cfg.savedir)
-
-    model = get_model(cfg).to(device, memory_format=torch.channels_last)
+    device, writer = open_run(cfg)
+    state = TrainState.for_config(cfg, device)
     if cfg.model_name == "spn":
         attitude_classes(cfg)  # fail before training, as the JAX trainer does
 
-    style_aug = _style_augmentor(cfg, device) if cfg.randomize_texture else None
+    style_aug = style_augmentor(cfg, device) if cfg.randomize_texture else None
 
     train_loader = make_dataloader(cfg, device)
     steps_per_epoch = len(train_loader)
-    state = TrainState(model, build_optimizer(cfg, model.parameters()))
 
-    begin_epoch, best_perf = 0, 0
-    if cfg.auto_resume and checkpoint_exists(cfg.savedir):
-        ckpt = load_checkpoint(osp.join(cfg.savedir, CKPT_NAME), device)
-        state.restore(ckpt)
-        begin_epoch = int(ckpt["epoch"])
-        best_perf = begin_epoch
+    begin_epoch, best_perf = resume(cfg, state, device)
     # Pretrained init (reference park2019.py:107 / spn.py:101-123), from the
     # converted assets when present, as the JAX trainer (train.py:131-136).
-    if begin_epoch == 0 and maybe_load_pretrained(cfg, model, default_assets_dir()):
+    if begin_epoch == 0 and maybe_load_pretrained(cfg, state.model, default_assets_dir()):
         # load_state_dict copied in place: the optimizer still holds the model's parameters.
         held = [p for group in state.optimizer.param_groups for p in group["params"]]
-        assert len(held) == len(list(model.parameters())) and all(
-            a is b for a, b in zip(held, model.parameters()))
-    broadcast_params(model)
+        params = list(state.model.parameters())
+        assert len(held) == len(params) and all(a is b for a, b in zip(held, params))
+    broadcast_params(state.model)
     if cfg.fp16:
         logger.info("bf16 autocast enabled (f32 parameters, no loss scaling)")
 
@@ -193,16 +144,7 @@ def _train(cfg) -> List[dict]:
                 records.append({"epoch": epoch + 1, **r})
             if validate and (epoch + 1) % cfg.test_epoch == 0:
                 run_validation(epoch + 1, cfg, eval_step, state.model, test_loader, writer)
-            # "Best" degenerates to latest, as in the reference (train.py:141-146).
-            perf = epoch + 1
-            is_best = perf > best_perf
-            best_perf = max(best_perf, perf)
-            if (epoch + 1) % cfg.save_epoch == 0 or epoch + 1 == cfg.max_epochs:
-                if is_main():
-                    save_checkpoint(state.as_checkpoint_dict(epoch + 1, cfg.model_name,
-                                                             best_perf),
-                                    is_best, cfg.savedir)
-                barrier(device)
+            best_perf = end_epoch(cfg, state, epoch + 1, best_perf, device)
         if prof is not None:
             prof.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .augment.styleaug import load_style_stats, random_style_stats
-from .config import resolve_device
+from .config import full_f32, resolve_device
 from .convert import state_dict_to_flax, write_flax_msgpack
 from .io_utils.assets import default_assets_dir
 from .models.ghiasi import EMBED_DIM, Ghiasi
@@ -137,8 +137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     "train_s": the loop's seconds on the host clock, synchronised}."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32()
 
     try:
         stats = load_style_stats(default_assets_dir())

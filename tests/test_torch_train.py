@@ -27,13 +27,14 @@ from speedplusbaseline_tpu.engine.optim import build_optimizer as jax_build_opti
 from speedplusbaseline_tpu.engine.optim import step_lr_schedule as jax_schedule
 from speedplusbaseline_tpu.models.krn import KeypointRegressionNet as JaxKRN
 from speedplusbaseline_tpu.models.krn import krn_loss as jax_krn_loss
-from speedplusbaseline_tpu_torch import train
+from speedplusbaseline_tpu_torch import adapt, train
 from speedplusbaseline_tpu_torch.augment.styleaug import StyleAugmentor
 from speedplusbaseline_tpu_torch.config import default_cfg
 from speedplusbaseline_tpu_torch.convert import state_dict_to_flax
 from speedplusbaseline_tpu_torch.data import DataLoader, KRNDataset
 from speedplusbaseline_tpu_torch.engine import (TrainState, build_optimizer, krn_step,
                                                 set_lr, step_lr_schedule, train_epoch)
+from speedplusbaseline_tpu_torch.engine import state as state_module
 from speedplusbaseline_tpu_torch.models.krn import KeypointRegressionNet
 from test_torch_augment import jax_draws
 
@@ -357,21 +358,30 @@ def test_train_cli_end_to_end(dataset, tmp_path):
         train.main(common + ["--max_epochs", "3", "--optimizer", "sgd"])
 
 
-def test_train_cli_resumes_a_foreach_adamw_checkpoint(dataset, tmp_path, monkeypatch):
+# The adapt CLI's target stream is the synthetic train CSV: the dataset has
+# no other domain.
+RESUME_CLIS = {"train": (train, []),
+               "adapt": (adapt, ["--perform_dann", "--test_domain", "synthetic",
+                                 "--test_csv", "train.csv"])}
+
+
+@pytest.mark.parametrize("cli", list(RESUME_CLIS))
+def test_train_cli_resumes_a_foreach_adamw_checkpoint(dataset, tmp_path, monkeypatch, cli):
     """A checkpoint whose AdamW state torch's default update wrote (as every
     checkpoint before the fused update: foreach on CUDA, the single-tensor
-    loop on the CPU) resumes through the train CLI fused, with its moments
-    and step count: its next step gives what the writer's own update gives.
-    One step an epoch, since AdamW's sign-like steps on KRN's random init
-    turn the two updates' last-bit differences into gaps of 1e-3 a step
-    later."""
+    loop on the CPU) resumes through the train CLI (and the adapt CLI, on
+    DANN's RevGrad) fused, with its moments and step count: its next step
+    gives what the writer's own update gives. One step an epoch, since
+    AdamW's sign-like steps on KRN's random init turn the two updates'
+    last-bit differences into gaps of 1e-3 a step later."""
+    module, flags = RESUME_CLIS[cli]
     common = ["--dataroot", dataset, "--input_shape", "32", "32", "--batch_size", "8",
-              "--num_workers", "2", "--optimizer", "adamw", "--no_cuda"]
+              "--num_workers", "2", "--optimizer", "adamw", "--no_cuda"] + flags
 
     def run(name, epochs):
         save = str(tmp_path / name)
-        train.main(common + ["--savedir", save, "--logdir", str(tmp_path / f"{name}_log"),
-                             "--max_epochs", str(epochs)])
+        module.main(common + ["--savedir", save, "--logdir", str(tmp_path / f"{name}_log"),
+                              "--max_epochs", str(epochs)])
         return torch.load(os.path.join(save, "checkpoint.pt"), weights_only=True)
 
     def torch_default_adamw(cfg, params):  # build_optimizer's AdamW before the fused update
@@ -379,7 +389,7 @@ def test_train_cli_resumes_a_foreach_adamw_checkpoint(dataset, tmp_path, monkeyp
                                  weight_decay=cfg.weight_decay)
 
     with monkeypatch.context() as m:
-        m.setattr(train, "build_optimizer", torch_default_adamw)
+        m.setattr(state_module, "build_optimizer", torch_default_adamw)
         old = run("ours", 1)
         shutil.copytree(tmp_path / "ours", tmp_path / "ref")
         ref = run("ref", 2)
