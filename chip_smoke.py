@@ -195,6 +195,14 @@ B1_CALLS_PER_STEP = 5
 # layer0 and 228^2 layer10 at batch 48.
 E1_LAYERS = (("layer0", 3, 32), ("layer10", 32, 3))
 E1_SHAPES = {"krn": ((192, S, S), (192, S, S)), "spn": ((B, 227, 227), (B, 228, 228))}
+# E2, the mid convs (csrc/midconv.cu): (layer, Cin, Cout, stride, upsample),
+# and the (B, H, W) input of each at the benchmark cells' shapes: KRN's 224^2
+# at batch 192, SPN's 227 -> 114 -> 57 (B1) -> 114 at batch 48.
+E2_LAYERS = (("layer1", 32, 64, 2, 1), ("layer2", 64, 128, 2, 1), ("layer8", 128, 64, 1, 2),
+             ("layer9", 64, 32, 1, 2))
+E2_SHAPES = {"krn": ((192, S, S), (192, S // 2, S // 2), (192, S // 4, S // 4),
+                     (192, S // 2, S // 2)),
+             "spn": ((B, 227, 227), (B, 114, 114), (B, 57, 57), (B, 114, 114))}
 # SPN's 227^2 through the generator: 227 -> 114 -> 57 (B1) -> 114 -> 228.
 SPN_S, SPN_CLASSES, SPN_NEIGHBORS = 227, 5000, 5
 SPN_B2_SITES = (
@@ -297,8 +305,10 @@ TOY_STEPS, TOY_B, TOY_S = 600, 8, 64
 # the images of bench_host_loader, the timed steps of each A/B arm, and B1's
 # and B2's launches a styled step in each Ghiasi lowering.
 PERF_E2E_IMAGES, PERF_E2E_EPOCHS, PERF_LOADER_IMAGES, PERF_AB_STEPS = 96, 2, 32, 10
-PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6, "reflect_conv9x9": 2},
-                 "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2, "reflect_conv9x9": 0}}
+PERF_LAUNCHES = {"plain": {"ghiasi_resblock": 5, "instance_norm_film": 6, "reflect_conv9x9": 2,
+                           "reflect_conv3x3": 4},
+                 "phase": {"ghiasi_resblock": 5, "instance_norm_film": 2, "reflect_conv9x9": 0,
+                           "reflect_conv3x3": 0}}
 # Device kernels of B1 and B2 by name, as a profiler trace holds them.
 B1_KERNEL, B2_KERNELS = "conv3x3_tc_kernel", ("in_cluster_kernel", "in_apply_kernel")
 # The program's spans (io_utils/spans.py) a styled KRN training epoch records.
@@ -513,6 +523,63 @@ def e1_rows(dev, g):
             "bound_ms_bf16_tensor_core": None, **per["krn"], "spn": per["spn"]}
 
 
+def e2_rows(dev, g):
+    """E2 against its plain version at odd shapes and both cells', bf16,
+    then per styled step of each cell (layers 1, 2, 8, 9): kernel, plain and
+    F.interpolate + F.pad + F.conv2d (the library path the port no longer
+    takes in bf16 on the card) ms beside the bound (layers 8 and 9:
+    operations; layers 1 and 2: bytes, x read and out written once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speedplusbaseline_tpu_torch.ops import midconv as mc
+
+    print("phase kernels: E2 reflect_conv3x3 vs reflect_conv3x3_plain", flush=True)
+
+    def args(cin, cout, shape):
+        x = torch.rand(*shape, cin, device=dev, generator=g).to(torch.bfloat16)
+        w = torch.randn(cout, 3, 3, cin, device=dev, generator=g) / math.sqrt(9 * cin)
+        b = torch.randn(cout, device=dev, generator=g) * 0.1
+        return x, w.to(torch.bfloat16), b
+
+    err = 0.0
+    for i, (layer, cin, cout, st, up) in enumerate(E2_LAYERS):
+        for shape in [(2, 2, 3), (2, 5, 7), (3, 37, 61)] + [s[i] for s in E2_SHAPES.values()]:
+            x, w, b = args(cin, cout, shape)
+            err = max(err, compare(f"E2 {layer} {shape} bf16", mc.reflect_conv3x3(x, w, b, st, up),
+                                   mc.reflect_conv3x3_plain(x, w, b, st, up), TOL["bfloat16"]))
+    per = {}
+    for model, shapes in E2_SHAPES.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for (layer, cin, cout, st, up), shape in zip(E2_LAYERS, shapes):
+            x, w, b = args(cin, cout, shape)
+            x_nchw, w_oihw, b16 = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b.bfloat16()
+
+            def library():
+                xu = F.interpolate(x_nchw, scale_factor=up, mode="nearest") if up > 1 else x_nchw
+                return F.conv2d(F.pad(xu, (1,) * 4, mode="reflect"), w_oihw, b16, st)
+            ms = time_ms(lambda: mc.reflect_conv3x3(x, w, b, st, up))
+            pms = time_ms(lambda: mc.reflect_conv3x3_plain(x, w, b, st, up), 5)
+            lms = time_ms(library, 5)
+            by_ops = mc.flops(shape, cin, cout, st, up) / BF16_TENSOR_FLOPS * 1e3
+            by_bytes = mc.bytes_moved(shape, cin, cout, st, up) / HBM_BYTES_PER_S * 1e3
+            bound = max(by_ops, by_bytes)
+            print(f"  E2 {model} {layer} {shape} {cin} -> {cout} stride {st} upsample {up} bf16: "
+                  f"kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({'operations' if by_ops > by_bytes else 'bytes'}), {ms / bound:.2f}x bound; "
+                  f"plain {pms:.4f} ms, F.interpolate + F.pad + F.conv2d {lms:.4f} ms",
+                  flush=True)
+            for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bound)):
+                tot[k] += v
+        per[model] = tot
+        print(f"phase kernels: E2 per {model} styled step: kernel {tot['ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.0%} of bound)", flush=True)
+    return {"max_abs_err": err, "bound_by": "operations (layers 8, 9), bytes (layers 1, 2)",
+            "bound_basis": "2 x 9 x Cin x Cout an output pixel at the bf16 tensor-core peak, "
+                           "or one read of x and one write of out at the HBM rate, the larger",
+            "bound_ms_bf16_tensor_core": None, **per["krn"], "spn": per["spn"]}
+
+
 def phase_kernels(dev):
     import torch
 
@@ -591,6 +658,7 @@ def phase_kernels(dev):
                                                 "bf16 tensor-core peak",
                                  **per["krn"], "spn": per["spn"]}
     report["reflect_conv9x9"] = e1_rows(dev, g)
+    report["reflect_conv3x3"] = e2_rows(dev, g)
     for model, b2, b1 in (("krn", tot, per["krn"]), ("spn", spn_tot, per["spn"])):
         ms, bound = b2["ms"] + b1["ms"], b2["bound_ms"] + b1["bound_ms"]
         print(f"phase kernels: B1 + B2 per {model} styled step (batch {B}): kernel {ms:.4f} ms, "
@@ -731,8 +799,10 @@ def phase_ghiasi_flax_init(dev):
         with _PlainGhiasi():
             q = stats(run(net_gpu), ref)
         launched = [{n: b[n] - a[n] for n in a} for a, b in ((n0, n1), (n1, _build.launches))]
-        if launched != [{"instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2},
-                        {"instance_norm_film": 0, "ghiasi_resblock": 0, "reflect_conv9x9": 0}]:
+        if launched != [{"instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2,
+                         "reflect_conv3x3": 4},
+                        {"instance_norm_film": 0, "ghiasi_resblock": 0, "reflect_conv9x9": 0,
+                         "reflect_conv3x3": 0}]:
             faults.append(f"seed {seed}: the K and Q runs launched {launched}")
         sites = {}
         for layer, (name, args, kw, out) in enumerate(calls):
@@ -2263,7 +2333,7 @@ def phase_ghiasi_phase(dev, sd):
     if not all(math.isfinite(v) for v in losses.values()):
         fail(f"ghiasi_phase: the phase-space styled step's losses {losses}")
     if launches != {"ghiasi_resblock": B1_CALLS_PER_STEP, "instance_norm_film": 2,
-                    "reflect_conv9x9": 0}:
+                    "reflect_conv9x9": 0, "reflect_conv3x3": 0}:
         fail(f"ghiasi_phase: one phase-space styled step launched {launches}")
     return launches
 
@@ -2410,12 +2480,12 @@ def phase_quality(dev):
                 styleaug_ab_run.N_PHOTO = n_photo
             arm_c = [a for a in arms[before_c:] if "--randomize_texture" in a[1]]
             # Arm C trains in f32 (no --use_fp16): its generator runs B1 and B2,
-            # and E1, which serves bf16 only, not at all.
+            # and E1 and E2, which serve bf16 only, not at all.
             if len(arm_c) != 1 or not (arm_c[0][2]["ghiasi_resblock"]
                                        and arm_c[0][2]["instance_norm_film"]) \
-                    or arm_c[0][2]["reflect_conv9x9"]:
+                    or arm_c[0][2]["reflect_conv9x9"] or arm_c[0][2]["reflect_conv3x3"]:
                 fail(f"quality: arm C's kernel launches {arm_c}: B1 and B2 must launch, "
-                     f"E1 not (f32)")
+                     f"E1 and E2 not (f32)")
             print(f"phase quality: style-aug arm C launched {arm_c[0][2]}; "
                   f"{time.time() - t0:.1f} s", flush=True)
 
@@ -2499,8 +2569,8 @@ def phase_quality(dev):
 
 class _PlainGhiasi:
     """Within it, the generator calls the plain PyTorch version of B1 and / or
-    B2 (and of E1, which only a bf16 generator reaches) in place of its
-    wrapper, on the card too."""
+    B2 (and of E1 and E2, which only a bf16 generator reaches) in place of
+    its wrapper, on the card too."""
 
     def __init__(self, b1: bool = True, b2: bool = True):
         self.b1, self.b2 = b1, b2
@@ -2509,20 +2579,24 @@ class _PlainGhiasi:
         from speedplusbaseline_tpu_torch.models import ghiasi
         from speedplusbaseline_tpu_torch.ops import (ghiasi_resblock_plain,
                                                      instance_norm_film_plain,
+                                                     reflect_conv3x3_plain,
                                                      reflect_conv9x9_plain)
 
-        self.saved = ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9
+        self.saved = (ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9,
+                      ghiasi.reflect_conv3x3)
         if self.b1:
             ghiasi.ghiasi_resblock = ghiasi_resblock_plain
         if self.b2:
             ghiasi.instance_norm_film = instance_norm_film_plain
         if self.b1 and self.b2:
             ghiasi.reflect_conv9x9 = reflect_conv9x9_plain
+            ghiasi.reflect_conv3x3 = reflect_conv3x3_plain
 
     def __exit__(self, *exc):
         from speedplusbaseline_tpu_torch.models import ghiasi
 
-        ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9 = self.saved
+        (ghiasi.ghiasi_resblock, ghiasi.instance_norm_film, ghiasi.reflect_conv9x9,
+         ghiasi.reflect_conv3x3) = self.saved
 
 
 def asset_content(dev):
@@ -2580,7 +2654,7 @@ def phase_toy_ghiasi(dev, card: str):
         grads[path] = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                            allow_unused=True)))
         expected = {"ghiasi_resblock": 5 * (not b1), "instance_norm_film": 6 * (not b2),
-                    "reflect_conv9x9": 0}  # the toy generator is f32
+                    "reflect_conv9x9": 0, "reflect_conv3x3": 0}  # the toy generator is f32
         if launched != expected:
             fail(f"toy_ghiasi: the {path} path's forward launched {launched}, not {expected}")
         if path in ("kernels", "plain"):
@@ -3103,6 +3177,8 @@ def main() -> None:
            "ghiasi_resblock": ("speedplusbaseline_tpu_torch/csrc/resblock.cu",
                                "speedplusbaseline_tpu/ops/pallas_resblock.py:110"),
            "reflect_conv9x9": ("speedplusbaseline_tpu_torch/csrc/edgeconv.cu",
+                               "none: XLA's convs of speedplusbaseline_tpu/models/ghiasi.py"),
+           "reflect_conv3x3": ("speedplusbaseline_tpu_torch/csrc/midconv.cu",
                                "none: XLA's convs of speedplusbaseline_tpu/models/ghiasi.py")}
     kernels = []
     for name, (source, replaces) in src.items():
@@ -3118,7 +3194,7 @@ def main() -> None:
                         "bound_ms_bf16_tensor_core": r["bound_ms_bf16_tensor_core"],
                         "spn": r["spn"], **({"sites": r["sites"]} if "sites" in r else {})})
     print("kernel times are per styled KRN step (224^2; B2: its six sites; B1: five calls; "
-          "E1: layer0 + layer10 at the KRN cell's batch 192), "
+          "E1: layer0 + layer10, E2: layers 1, 2, 8, 9, both at the KRN cell's batch 192), "
           "bf16, and under \"spn\" per styled SPN step (227^2); launches count the "
           "paths (6 KRN and 4 SPN styled steps, 4 DANN steps, which have no restyle, 3 KRN and "
           "2 SPN styled steps on converted pretrained assets, the StylePredictor's embedding "

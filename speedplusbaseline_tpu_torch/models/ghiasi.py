@@ -7,12 +7,16 @@ residual blocks, two FiLM-conditioned upsample layers and a 9x9 output conv
 
 Every instance norm goes through ``ops.instance_norm_film`` (kernel B2 on
 CUDA) and every residual block through ``ops.ghiasi_resblock`` (kernel B1 on
-CUDA); there is no switch that turns them off on the card. The strided and
-upsample convs are plain ``F.conv2d``, as the JAX package leaves them to
-XLA. The two 9x9 convs (layers 0 and 10, reflect pad included) go through
-``ops.reflect_conv9x9`` (the edge-conv kernel) where their input is bf16 on
-CUDA; in f32, on the CPU and in the phase-space lowering they stay
-``reflect_pad`` + ``F.conv2d``.
+CUDA); there is no switch that turns them off on the card. The JAX package
+leaves the other convs to XLA. Where their input is bf16 on CUDA, the two
+9x9 convs (layers 0 and 10, reflect pad included) go through
+``ops.reflect_conv9x9`` (the edge-conv kernel, E1), and the four 3x3 convs
+(layers 1 and 2 with their stride 2, layers 8 and 9 with their nearest 2x
+upsample, reflect pad included) through ``ops.reflect_conv3x3`` (the
+mid-conv kernel, E2), which reads the NHWC input as it is: no upsampled or
+padded copy and no layout transpose. In f32, on the CPU and in the
+phase-space lowering they stay ``upsample_nearest`` + ``reflect_pad`` +
+``F.conv2d``.
 
 ``dtype`` is the compute dtype, as the flax module's: the input and the conv
 weights are cast to it, FiLM stays f32, and the output is the sigmoid cast to
@@ -22,9 +26,9 @@ the kernels see the (B, H, W, C) view of the same storage. A float64 module in t
 lowering (the CPU tests' float64 steps) computes FiLM, the norms and the
 blocks in float64.
 
-The generator is trainable. Both kernels are differentiable (their backward
-is the VJP of their plain version, ``ops/_vjp.py``). B1 and the phase-space
-convs take rewritten conv weights (HWIO, phase kernels): when the conv
+The generator is trainable. Every kernel is differentiable (its backward
+is the VJP of its plain version, ``ops/_vjp.py``). B1, E2 and the phase-space
+convs take rewritten conv weights (HWIO, bf16 OHWI, phase kernels): when the conv
 weights require grad under grad mode, the forward rewrites them from the
 live weights on every call, so that the gradient reaches them; otherwise it
 reads the rewritten copies cached in non-persistent buffers, remade after
@@ -48,6 +52,7 @@ import torch.nn.functional as F
 from ..ops._vjp import needs_grad
 from ..ops.edgeconv import reflect_conv9x9
 from ..ops.instancenorm import compute_dtype, instance_norm_film
+from ..ops.midconv import pack, reflect_conv3x3
 from ..ops.phase_conv import (conv3x3_s2_phase_aligned, conv9x9_phase, conv9x9_phase_dp,
                               depth_to_space2, phase_instance_norm_packed,
                               phase_weights_9x9, phase_weights_9x9_dp,
@@ -101,19 +106,55 @@ def _padded_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return _nhwc(_conv(conv, reflect_pad(x, k // 2)))
 
 
-class ConvInRelu(nn.Module):
+class _ConvLayer(nn.Module):
+    """A generator layer around ``self.conv``. A 3x3 conv also keeps its
+    weight packed for E2 (bf16 OHWI) in a non-persistent buffer, made after
+    the init and remade after every ``load_state_dict``, as
+    ``ResidualBlock`` keeps B1's; under grad mode, when the conv weight
+    requires grad, the forward packs the live weight on every call instead."""
+
+    def _pack_conv(self) -> None:
+        if self.conv.kernel_size[0] == 3:
+            self.register_buffer("w_ohwi", None, persistent=False)
+            self._refresh_ohwi()
+            self.register_load_state_dict_post_hook(
+                lambda module, _incompatible: module._refresh_ohwi())
+
+    @torch.no_grad()
+    def _refresh_ohwi(self) -> None:
+        self.w_ohwi = pack(self.conv.weight, torch.bfloat16)
+
+    def _conv_nhwc(self, x: torch.Tensor, upsample: int = 0) -> torch.Tensor:
+        """Nearest ``upsample`` (when set) + reflect pad + conv of an NCHW
+        (channels_last) x, as (B, H, W, C). A 3x3 conv of a bf16 x on the
+        card runs E2 on the NHWC view of x, on the bf16 weights ``_conv``
+        would use and the f32 bias; any other takes ``upsample_nearest`` +
+        ``_padded_conv``."""
+        conv = self.conv
+        if conv.kernel_size[0] == 3 and x.dtype == torch.bfloat16 and _on_card(x):
+            w = (pack(conv.weight, x.dtype) if needs_grad((conv.weight,))
+                 else self.w_ohwi.to(x.dtype))
+            return reflect_conv3x3(_nhwc(x), w, conv.bias.to(compute_dtype(x.dtype)),
+                                   conv.stride[0], upsample or 1)
+        if upsample:
+            x = upsample_nearest(x, upsample)
+        return _padded_conv(conv, x)
+
+
+class ConvInRelu(_ConvLayer):
     """ReflectionPad + Conv + InstanceNorm + ReLU (ghiasi.py:6-23)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride)
         flax_default_init_(self)
+        self._pack_conv()
 
     def forward(self, x):
-        return _nchw(instance_norm_film(_padded_conv(self.conv, x), relu=True))
+        return _nchw(instance_norm_film(self._conv_nhwc(x), relu=True))
 
 
-class UpsampleConvInRelu(nn.Module):
+class UpsampleConvInRelu(_ConvLayer):
     """Optional upsample + ReflectionPad + Conv + IN + FiLM (+ ReLU)
     (ghiasi.py:26-62)."""
 
@@ -126,13 +167,12 @@ class UpsampleConvInRelu(nn.Module):
         self.fc_beta = nn.Linear(EMBED_DIM, features)
         self.conv = nn.Conv2d(in_ch, features, kernel_size)
         flax_default_init_(self)
+        self._pack_conv()
 
     def forward(self, x, style):
         gamma = self.fc_gamma(style)
         beta = self.fc_beta(style)
-        if self.upsample:
-            x = upsample_nearest(x, self.upsample)
-        return _nchw(instance_norm_film(_padded_conv(self.conv, x), gamma, beta,
+        return _nchw(instance_norm_film(self._conv_nhwc(x, self.upsample), gamma, beta,
                                         relu=self.use_relu))
 
 

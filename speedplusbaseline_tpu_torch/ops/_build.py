@@ -32,7 +32,7 @@ from typing import Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("instancenorm", "resblock", "edgeconv")
+SOURCES = ("instancenorm", "resblock", "edgeconv", "midconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -47,10 +47,11 @@ SIGNATURES = {
                  "gk_resblock_wsplit_bytes": [_I],
                  "gk_resblock_smem_bytes": [_I, _I]},
     "edgeconv": {"gk_edgeconv": [_P] * 4 + [_I] * 5 + [_P]},
+    "midconv": {"gk_midconv": [_P] * 4 + [_I] * 7 + [_P]},
 }
 
 launches: Dict[str, int] = {"instance_norm_film": 0, "ghiasi_resblock": 0,
-                           "reflect_conv9x9": 0}
+                           "reflect_conv9x9": 0, "reflect_conv3x3": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

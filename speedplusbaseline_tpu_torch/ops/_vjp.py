@@ -1,7 +1,9 @@
 """Gradients through the forward-only kernels.
 
-``csrc/resblock.cu`` (B1), ``csrc/instancenorm.cu`` (B2) and
-``csrc/edgeconv.cu`` (the edge convs) compute forward passes only: their wrappers write the kernel's output into a fresh tensor,
+``csrc/resblock.cu`` (B1), ``csrc/instancenorm.cu`` (B2),
+``csrc/edgeconv.cu`` (the edge convs) and ``csrc/midconv.cu`` (the 3x3
+convs of layers 1, 2, 8 and 9) compute forward passes only: their wrappers
+write the kernel's output into a fresh tensor,
 which autograd cannot see into. ``PlainVJP`` wraps such a call: its forward
 is the wrapper's own call (the kernel on CUDA, the plain version on the
 CPU), and its backward is the VJP of the plain PyTorch version, recomputed

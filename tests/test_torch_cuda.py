@@ -31,6 +31,7 @@ from speedplusbaseline_tpu_torch.ops.edgeconv import reflect_conv9x9, reflect_co
 from speedplusbaseline_tpu_torch.ops.instancenorm import (instance_norm_film,
                                                           instance_norm_film_plain, path_calls,
                                                           plan_on_card)
+from speedplusbaseline_tpu_torch.ops.midconv import reflect_conv3x3, reflect_conv3x3_plain
 from speedplusbaseline_tpu_torch.ops.resblock import ghiasi_resblock, ghiasi_resblock_plain
 
 pytestmark = pytest.mark.cuda
@@ -233,12 +234,78 @@ def test_reflect_conv9x9_rejects_what_the_kernel_does_not_take(dev):
         reflect_conv9x9(x[..., :16].contiguous(), w[:, :16].contiguous(), b)
 
 
+# (B, H, W) inputs of the mid convs (layer1, layer2, layer8, layer9): the two
+# cells' main-path shapes, KRN's (192, 224^2) and SPN's (48, 227^2) through
+# the generator, and small odd ones, ragged on every layer's tiles.
+MID_SHAPES = {
+    "layer1": [(192, 224, 224), (48, 227, 227)],
+    "layer2": [(192, 112, 112), (48, 114, 114)],
+    "layer8": [(192, 56, 56), (48, 57, 57)],
+    "layer9": [(192, 112, 112), (48, 114, 114)],
+}
+MID_SMALL = [(2, 2, 3), (2, 5, 7), (3, 37, 61), (1, 17, 33)]
+MID_LAYERS = dict(zip(MID_SHAPES, ((32, 64, 2, 1), (64, 128, 2, 1), (128, 64, 1, 2),
+                                   (64, 32, 1, 2))))
+
+
+def _mid_args(dev, layer, shape, seed):
+    cin, cout, stride, up = MID_LAYERS[layer]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(*shape, cin, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(cout, 3, 3, cin, device=dev, generator=g) / (9 * cin) ** 0.5
+    b = torch.randn(cout, device=dev, generator=g) * 0.1
+    return (x, w.to(torch.bfloat16), b), {"stride": stride, "upsample": up}
+
+
+@pytest.mark.parametrize("layer,shape", [(n, s) for n, shapes in MID_SHAPES.items()
+                                         for s in shapes + MID_SMALL])
+def test_reflect_conv3x3_kernel(dev, layer, shape):
+    """The mid-conv kernel against its plain version (f32 sums of the same
+    bf16 products, rounded once: the two sum in another order, so an output
+    may round one bf16 ulp apart, within the bf16 tolerance) at the main
+    paths' shapes and odd ones."""
+    args, kw = _mid_args(dev, layer, shape, 5)
+    before = _build.launches["reflect_conv3x3"]
+    _check(reflect_conv3x3(*args, **kw), reflect_conv3x3_plain(*args, **kw), TOL[torch.bfloat16])
+    assert _build.launches["reflect_conv3x3"] == before + 1
+
+
+def test_reflect_conv3x3_gradient_on_card(dev):
+    """Under grad the kernel still runs the forward, and every argument's
+    gradient is the plain version's VJP."""
+    args, kw = _mid_args(dev, "layer8", (2, 7, 5), 6)
+    args = [a.requires_grad_() for a in args]
+    before = _build.launches["reflect_conv3x3"]
+    out = reflect_conv3x3(*args, **kw)
+    assert _build.launches["reflect_conv3x3"] == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    cot = cot.to(torch.bfloat16)
+    got = torch.autograd.grad(out, args, cot)
+    ref = torch.autograd.grad(reflect_conv3x3_plain(*args, **kw), args, cot)
+    for a, r in zip(got, ref):
+        _check(a, r, TOL_GRAD[a.dtype])
+
+
+def test_reflect_conv3x3_rejects_what_the_kernel_does_not_take(dev):
+    """f32 on the card, a misaligned x and another channel pair are refused;
+    there is no fallback."""
+    (x, w, b), kw = _mid_args(dev, "layer9", (1, 9, 9), 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        reflect_conv3x3(x.float(), w.float(), b, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)[1:].view(x.shape)
+        reflect_conv3x3(shifted.copy_(x), w, b, **kw)
+    with pytest.raises(ValueError, match="one of"):
+        reflect_conv3x3(x[..., :32].contiguous(), w[..., :32].contiguous(), b, **kw)
+
+
 @pytest.mark.parametrize("side", [224, 227])
 def test_ghiasi_bf16_on_card_within_bound_of_f32(dev, side):
-    """The bf16 generator (B1, B2 and the edge convs) on the shipped weights
-    against the f32 one on the card, within chip_smoke's TOL_GHIASI_BF16
-    (2^-6), with layer0 and layer10 on the edge-conv kernel; the f32
-    generator launches it not at all."""
+    """The bf16 generator (B1, B2, the edge convs and the mid convs) on the
+    shipped weights against the f32 one on the card, within chip_smoke's
+    TOL_GHIASI_BF16 (2^-6), with layer0 and layer10 on the edge-conv kernel
+    and layers 1, 2, 8 and 9 on the mid-conv kernel; the f32 generator
+    launches neither."""
     import os
 
     from speedplusbaseline_tpu_torch.augment.styleaug import load_ghiasi_params
@@ -253,11 +320,12 @@ def test_ghiasi_bf16_on_card_within_bound_of_f32(dev, side):
     for dtype in (torch.float32, torch.bfloat16):
         net = Ghiasi(dtype).to(dev).eval()
         net.load_state_dict(sd)
-        before = _build.launches["reflect_conv9x9"]
+        before = dict(_build.launches)
         with torch.no_grad():
             out[dtype] = net(x, st).float()
-        ran[dtype] = _build.launches["reflect_conv9x9"] - before
-    assert ran == {torch.float32: 0, torch.bfloat16: 2}
+        ran[dtype] = tuple(_build.launches[k] - before[k]
+                           for k in ("reflect_conv9x9", "reflect_conv3x3"))
+    assert ran == {torch.float32: (0, 0), torch.bfloat16: (2, 4)}
     _check(out[torch.bfloat16], out[torch.float32], (2.0 ** -6, 0.0))
 
 
@@ -472,7 +540,8 @@ def test_ghiasi_bf16_flax_init_within_rule_of_jax(dev, seed):
         ref = net(x, st)
         got = card(x.to(dev), st.to(dev)).float().cpu()
     assert {k: _build.launches[k] - v for k, v in before.items()} == {
-        "instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2}
+        "instance_norm_film": 6, "ghiasi_resblock": 5, "reflect_conv9x9": 2,
+        "reflect_conv3x3": 4}
     err = (got - ref).abs()
     assert not chip_smoke.ghiasi_bf16_fault(seed, err.max().item(), err.mean().item()), (
         err.max().item(), err.mean().item(), chip_smoke.JAX_GHIASI_BF16[seed])

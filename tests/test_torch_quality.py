@@ -381,4 +381,5 @@ def test_launch_log_records_a_subprocess(tmp_path):
     lines = [json.loads(line) for line in log.read_text().splitlines()]
     assert [r["launches"] for r in lines] == [{}, {"instance_norm_film": 0,
                                                    "ghiasi_resblock": 0,
-                                                   "reflect_conv9x9": 0}]
+                                                   "reflect_conv9x9": 0,
+                                                   "reflect_conv3x3": 0}]
