@@ -159,7 +159,8 @@ def dann_step(state: TrainState, src_images: torch.Tensor, keypts: torch.Tensor,
         model.train()
         with torch.autocast(xs.device.type, dtype=torch.bfloat16, enabled=fp16):
             (xc, yc), dom_src = model(xs, alpha)
-            _, dom_tgt = model(xt, alpha)
+            with span("speedplus.target"):
+                _, dom_tgt = model(xt, alpha)
         xc, yc, kp, dom_src, dom_tgt = (global_rows(t) for t in (xc.float(), yc.float(), kp,
                                                                  dom_src, dom_tgt))
         loss_pose, _ = krn_loss(xc, yc, kp)

@@ -16,6 +16,11 @@ The spans, all on the thread that runs the loop:
   speedplus.augment      KRN's and DANN's aug draws, and ``apply_augment``
   speedplus.restyle      the style embedding and the Ghiasi generator
   speedplus.forward      the model's forward and the loss
+  speedplus.target       DANN's target-stream forward, inside ``speedplus.forward``
+  speedplus.domain       DANN's gradient reversal and domain head, once a stream,
+                         inside ``speedplus.forward`` (the target's inside
+                         ``speedplus.target``); autograd launches its backward
+                         outside every span
   speedplus.backward     ``zero_grad`` and ``loss.backward()`` (autograd launches
                          the kernels from its own thread while this one waits)
   speedplus.all_reduce   the gradients' sum over the ranks
@@ -32,7 +37,8 @@ import contextlib
 import torch
 
 SPANS = ("speedplus.loader_wait", "speedplus.step", "speedplus.augment",
-         "speedplus.restyle", "speedplus.forward", "speedplus.backward",
+         "speedplus.restyle", "speedplus.forward", "speedplus.target",
+         "speedplus.domain", "speedplus.backward",
          "speedplus.all_reduce", "speedplus.clip", "speedplus.optimizer",
          "speedplus.readback", "speedplus.progress", "speedplus.eval_step")
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..io_utils.spans import span
 from .krn import KeypointRegressionNet
 from .layers import flax_default_init_
 
@@ -72,7 +73,8 @@ class RevGrad(nn.Module):
             return xc, yc
         # The reversal acts on the f32 map, as JAX's ``feat.astype(float32)``;
         # the head then casts it to its own dtype.
-        return (xc, yc), self.domain_classifier(grad_reverse(feat.float(), alpha))
+        with span("speedplus.domain"):
+            return (xc, yc), self.domain_classifier(grad_reverse(feat.float(), alpha))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

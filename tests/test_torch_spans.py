@@ -33,8 +33,8 @@ PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 STEPS = 3
 #: Spans recorded inside each ``speedplus.step`` (or ``speedplus.eval_step``).
 IN_STEP = ("speedplus.augment", "speedplus.restyle", "speedplus.forward",
-           "speedplus.backward", "speedplus.all_reduce", "speedplus.clip",
-           "speedplus.optimizer")
+           "speedplus.target", "speedplus.domain", "speedplus.backward",
+           "speedplus.all_reduce", "speedplus.clip", "speedplus.optimizer")
 #: Spans the loop records outside its step.
 IN_LOOP = ("speedplus.loader_wait", "speedplus.readback", "speedplus.progress")
 #: Each path's spans and their count a step; a loop makes one more fetch
@@ -49,7 +49,7 @@ PER_STEP = {
             "speedplus.optimizer": 1, "speedplus.readback": 1, "speedplus.progress": 1,
             "speedplus.loader_wait": 1},
     "dann": {"speedplus.step": 1, "speedplus.augment": 2, "speedplus.forward": 1,
-             "speedplus.backward": 1, "speedplus.all_reduce": 1, "speedplus.clip": 1,
+             "speedplus.target": 1, "speedplus.domain": 2, "speedplus.backward": 1, "speedplus.all_reduce": 1, "speedplus.clip": 1,
              "speedplus.optimizer": 1, "speedplus.readback": 1, "speedplus.progress": 1,
              "speedplus.loader_wait": 1},
     "validation": {"speedplus.eval_step": 1, "speedplus.readback": 1,
